@@ -1,0 +1,680 @@
+#!/usr/bin/env python3
+"""Chip smoke of the PyTorch/CUDA port (`src/repro_torch`) on one GPU.
+
+    python3 chip_smoke.py [--seed N] [--writes N]
+
+Phases, in order; any failure raises and exits non-zero:
+
+  device   — a CUDA card is required; prints its name, count and power
+             limit (nvidia-smi).
+  build    — compiles the four CUDA kernels from `src/repro_torch/csrc`
+             with nvcc for sm_90a.
+  kernels  — runs each kernel and its plain PyTorch version on the card
+             at the shapes of the paper-geometry main path, requires them
+             bitwise equal, and times kernel, plain version and the one
+             library call that computes the same function: device time
+             per call from torch.profiler after warm-up, and the
+             wrapper's wall time between CUDA events beside it. Bounds
+             count each byte the function needs once.
+  main     — the engine at the paper's Table 1 baseline
+             (`paper_params(merge_budget=1, range_cand=512)`) on the card:
+             8M writes and 800K interleaved deletes, 1M lookups, 2048
+             range scans, 2048 aggregates, every answer checked against a
+             numpy oracle; all four kernels must have launched.
+  profile  — a short window of each main-path flow under torch.profiler:
+             device time by kernel and the device-busy share.
+  cascade  — the scaled geometry through deepest-level compactions with
+             annihilation, checked against the dict oracle.
+
+The last two lines of standard output are the kernels' JSON record and
+the device record; nothing of JAX or of the reference package is used.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory (NVIDIA data sheet)
+LOOKUP_BATCH = 4096
+SCAN_BATCH = 32
+KEY_BITS = 24
+
+
+def log(*parts) -> None:
+    print(*parts, flush=True)
+
+
+def bound_ms(n_bytes: float) -> float:
+    return n_bytes / HBM_BYTES_PER_S * 1e3
+
+
+def wall_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Mean time of fn() over `iters` back-to-back calls between two CUDA
+    events: the device work plus the host's gaps between launches."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def device_us_by_name(prof):
+    """Device time (µs) of every kernel and copy a profile traced, by name."""
+    import collections
+
+    from torch.autograd import DeviceType
+    by_name = collections.Counter()
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            by_name[ev.name] += ev.time_range.elapsed_us()
+    return by_name
+
+
+def device_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Mean device time of fn() over `iters` calls: the summed durations of
+    the kernels and copies torch.profiler traces on the card, so the host's
+    gaps between launches do not count."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(device_us_by_name(prof).values())
+    if us <= 0:
+        raise AssertionError("the profiler traced no device time")
+    return us / 1e3 / iters
+
+
+def search_reads(rows, base, n: int, x, right: bool):
+    """The binary search of common.cuh (`lower_bound`, or `upper_bound`
+    when right) of x (D, Q) in rows[d, base : base + n], run in lockstep:
+    -> (result (D, Q), flat indices d * width + i of every element read)."""
+    import torch
+    d_n, width = rows.shape
+    lo = torch.zeros_like(x, dtype=torch.int64)
+    hi = torch.full_like(lo, n)
+    row0 = torch.arange(d_n, device=rows.device)[:, None] * width
+    reads = []
+    while bool((act := lo < hi).any()):
+        mid = (lo + hi) >> 1
+        at = (base + mid).clamp(max=width - 1)
+        v = rows.gather(1, at)
+        go = (v <= x) if right else (v < x)
+        reads.append((row0 + at)[act])
+        lo = torch.where(act & go, mid + 1, lo)
+        hi = torch.where(act & ~go, mid, hi)
+    return lo, torch.cat(reads)
+
+
+def max_abs_err(got, want) -> int:
+    import torch
+    if isinstance(got, torch.Tensor):
+        got, want = (got,), (want,)
+    err = 0
+    for g, w in zip(got, want):
+        if not torch.equal(g, w):
+            err = max(err, int((g.long() - w.long()).abs().max()))
+            err = max(err, 1)
+    return err
+
+
+# --------------------------------------------------------------------------
+# kernels phase
+# --------------------------------------------------------------------------
+
+def sorted_runs(rng, d_n, cap, counts, key_bits=KEY_BITS):
+    """(D, cap) sorted distinct keys per run, KEY_EMPTY padded."""
+    from repro_torch.core.params import KEY_EMPTY
+    keys = np.full((d_n, cap), KEY_EMPTY, np.int32)
+    for d in range(d_n):
+        ks = np.unique(rng.integers(0, 2 ** key_bits, counts[d] * 2,
+                                    dtype=np.int32))
+        ks = rng.permutation(ks)[:counts[d]]
+        keys[d, :len(ks)] = np.sort(ks)
+        counts[d] = len(ks)
+    return keys
+
+
+def kernel_phase(p, device, rng):
+    """Each kernel against its plain version at main-path shapes."""
+    import torch
+    from repro_torch.core import bloom as BL
+    from repro_torch.core import runs as RU
+    from repro_torch.core.params import KEY_EMPTY
+    from repro_torch.kernels import bloom_probe as KBP
+    from repro_torch.kernels import fence_lookup as KFL
+    from repro_torch.kernels import heap_merge as KHM
+    from repro_torch.kernels import range_merge as KRM
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    out = []
+    q_n = LOOKUP_BATCH
+    # level 1 of the paper geometry: D runs of level_cap(1) slots
+    cap1 = p.level_cap(1)
+    counts = np.full(p.D, cap1, np.int64)
+    counts[p.D // 2:] = cap1 - cap1 // 7       # partly filled runs too
+    keys1 = sorted_runs(rng, p.D, cap1, counts)
+    keys1_t = dev(keys1)
+    counts_t = dev(counts.astype(np.int32))
+    present = keys1[rng.integers(0, p.D, q_n // 2),
+                    rng.integers(0, cap1 - cap1 // 7, q_n // 2)]
+    qs = np.concatenate([present, rng.integers(
+        0, 2 ** (KEY_BITS + 1), q_n - q_n // 2, dtype=np.int32)])
+    qs_t = dev(qs.astype(np.int32))
+
+    # -- bloom_probe: level-1 filters, k probes at the level's eps
+    bits, words, k = p.bloom_geometry(cap1, p.level_eps(1))
+    blooms = torch.stack([BL.bloom_build(keys1_t[d], keys1_t[d] != KEY_EMPTY,
+                                         words, k, bits)
+                          for d in range(p.D)])
+    got = KBP.bloom_probe_many(blooms, qs_t, k, bits)
+    torch.cuda.synchronize()
+    want = KBP.bloom_probe_plain(blooms, qs_t, k, bits)
+    # bytes: each query and output once, and each filter word once that
+    # the probes this data needs read (a pair stops at its first clear bit)
+    pos = BL.probe_positions(qs_t, k, bits)
+    bit = ((blooms[:, pos // 32].long() >> (pos % 32)) & 1).bool()
+    probes = torch.where(bit.all(-1), k, (~bit).int().argmax(-1) + 1)
+    need = torch.arange(k, device=device) < probes[..., None]
+    word_id = (torch.arange(p.D, device=device)[:, None, None] * words
+               + pos[None] // 32).expand_as(need)
+    bloom_words = int(torch.unique(word_id[need]).numel())
+
+    def probe():
+        return KBP.bloom_probe_many(blooms, qs_t, k, bits)
+
+    out.append(dict(
+        name="bloom_probe", source="src/repro_torch/csrc/bloom_probe.cu",
+        replaces="src/repro/kernels/bloom_probe/bloom_probe.py:30",
+        shape=f"D={p.D} W={words} k={k} Q={q_n}",
+        bytes_counted=(f"{int(probes.sum())} probes over {bloom_words} "
+                       "distinct filter words"),
+        max_abs_err=max_abs_err(got, want),
+        ms=device_ms(probe, 50), wall_ms=wall_ms(probe, 50),
+        plain_ms=device_ms(lambda: KBP.bloom_probe_plain(blooms, qs_t, k,
+                                                         bits), 10),
+        bound_ms=bound_ms(q_n * 4 + p.D * q_n + bloom_words * 4),
+        library_ms=None))
+
+    # -- fence_lookup: level-1 fences over the same runs
+    f_n = p.n_fences(1)
+    fences = keys1_t[:, ::p.mu].contiguous()
+    got = KFL.fence_lookup_many(qs_t, fences, keys1_t, counts_t, p.mu)
+    torch.cuda.synchronize()
+    want = KFL.fence_lookup_plain(qs_t, fences, keys1_t, counts_t, p.mu)
+    # bytes: queries, counts and outputs once, and each fence and key word
+    # once that the two searches of fence_lookup.cu read for this data
+    qs_d = qs_t.expand(p.D, -1).contiguous()
+    zero = torch.zeros(qs_d.shape, dtype=torch.int64, device=device)
+    f, fence_reads = search_reads(fences, zero, f_n, qs_d, right=True)
+    start = ((f - 1).clamp(0, f_n - 1) * p.mu).clamp(max=cap1 - p.mu)
+    off, key_reads = search_reads(keys1_t, start, p.mu, qs_d, right=False)
+    idx = start + off.clamp(max=p.mu - 1)
+    hit = ((off < p.mu) & (keys1_t.gather(1, idx) == qs_d)
+           & (idx < counts_t[:, None]))
+    if not torch.equal(torch.where(hit, idx, -1).int(), want):
+        raise AssertionError("fence_lookup: the byte count's search "
+                             "disagrees with the kernel")
+    last = idx + torch.arange(p.D, device=device)[:, None] * cap1
+    fence_words = int(torch.unique(fence_reads).numel())
+    key_words = int(torch.unique(torch.cat([key_reads,
+                                            last.reshape(-1)])).numel())
+
+    def lookup():
+        return KFL.fence_lookup_many(qs_t, fences, keys1_t, counts_t, p.mu)
+
+    out.append(dict(
+        name="fence_lookup", source="src/repro_torch/csrc/fence_lookup.cu",
+        replaces="src/repro/kernels/fence_lookup/fence_lookup.py:31",
+        shape=f"D={p.D} F={f_n} cap={cap1} mu={p.mu} Q={q_n}",
+        bytes_counted=(f"{fence_words} distinct fence words, {key_words} "
+                       "distinct key words"),
+        max_abs_err=max_abs_err(got, want),
+        ms=device_ms(lookup, 50), wall_ms=wall_ms(lookup, 50),
+        plain_ms=device_ms(lambda: KFL.fence_lookup_plain(
+            qs_t, fences, keys1_t, counts_t, p.mu), 5),
+        bound_ms=bound_ms(q_n * 4 + p.D * 4 + p.D * q_n * 4
+                          + (fence_words + key_words) * 4),
+        library_ms=device_ms(lambda: torch.searchsorted(keys1_t, qs_d), 20)))
+
+    # -- heap_merge: the level-0 -> level-1 spill, D runs of level_cap(0)
+    cap0 = p.level_cap(0)
+    c0 = np.full(p.D, p.runs_merged * p.Rn, np.int64)
+    k0 = sorted_runs(rng, p.D, cap0, c0)
+    real = k0 != KEY_EMPTY
+    seqs = np.where(real, rng.permutation(k0.size).reshape(k0.shape), 0)
+    wts = np.where(real, rng.choice([-1, 1], k0.shape), 0)
+    lanes = [dev(a.reshape(-1).astype(np.int32)) for a in (k0, wts, seqs)]
+    ix = torch.arange(k0.size, dtype=torch.int32, device=device)
+    n = k0.size
+
+    def heap(round_fn=None):
+        return KHM.ops.tournament(*lanes, ix, cap0, p.D, round_fn)
+
+    got = heap()
+    torch.cuda.synchronize()
+    want = heap(KHM.merge_round_plain)
+    comp = RU.composite(lanes[0], lanes[2])
+    out.append(dict(
+        name="heap_merge", source="src/repro_torch/csrc/heap_merge.cu",
+        replaces="src/repro/kernels/heap_merge/heap_merge.py:48",
+        shape=f"{p.D} runs x {cap0} = {n} lanes, "
+              f"{math.ceil(math.log2(p.D))} rounds",
+        max_abs_err=max_abs_err(got, want),
+        ms=device_ms(heap, 10), wall_ms=wall_ms(heap, 10),
+        plain_ms=device_ms(lambda: heap(KHM.merge_round_plain), 3),
+        bound_ms=bound_ms(n * 16 * 2),
+        library_ms=device_ms(lambda: torch.sort(comp, stable=True), 10)))
+
+    # -- range_merge: Q scans x range_cand lanes of P = 1 + R + 2D parts
+    q_s, c_n, n_seg = SCAN_BATCH, p.range_cand_eff(2), 1 + p.R + 2 * p.D
+    k_r = np.full((q_s, c_n), KEY_EMPTY, np.int32)
+    s_r = np.zeros((q_s, c_n), np.int32)
+    w_r = np.zeros((q_s, c_n), np.int32)
+    off = np.zeros((q_s, n_seg + 1), np.int32)
+    for q in range(q_s):
+        sizes = rng.multinomial(int(rng.integers(c_n // 4, c_n + 1)),
+                                np.ones(n_seg) / n_seg)
+        pos = 0
+        for i, size in enumerate(sizes):
+            k_r[q, pos:pos + size] = np.sort(rng.choice(256, size,
+                                                        replace=False))
+            pos += size
+            off[q, i + 1] = pos
+        s_r[q, :pos] = rng.permutation(c_n * 8)[:pos]
+        w_r[q, :pos] = rng.choice([-1, 1], pos)
+    s0 = 1 << (n_seg - 1).bit_length()
+    off = np.concatenate([off, np.repeat(off[:, -1:], s0 - n_seg, 1)], 1)
+    rl = [dev(a) for a in (k_r, w_r, s_r)]
+    rix = torch.arange(c_n, dtype=torch.int32,
+                       device=device).expand(q_s, -1).contiguous()
+    off_t = dev(off)
+
+    def scan(round_fn=None):
+        return KRM.ops.tournament(*rl, rix, off_t, True, round_fn)
+
+    got = scan()
+    torch.cuda.synchronize()
+    want = scan(KRM.merge_round_plain)
+    rcomp = RU.composite(rl[0], rl[2])
+    out.append(dict(
+        name="range_merge", source="src/repro_torch/csrc/range_merge.cu",
+        replaces="src/repro/kernels/range_merge/range_merge.py:98",
+        shape=f"Q={q_s} C={c_n} P={n_seg}->{s0}, "
+              f"{int(math.log2(s0))} rounds",
+        max_abs_err=max_abs_err(got, want),
+        ms=device_ms(scan, 50), wall_ms=wall_ms(scan, 50),
+        plain_ms=device_ms(lambda: scan(KRM.merge_round_plain), 10),
+        bound_ms=bound_ms(q_s * c_n * 16 + off.size * 4
+                          + q_s * c_n * 17),
+        library_ms=device_ms(lambda: torch.sort(rcomp, dim=1, stable=True),
+                             50)))
+    for rec in out:
+        rec.update(route="cuda", bound_by="bytes",
+                   bitwise_equal=rec["max_abs_err"] == 0)
+        log(f"kernel {rec['name']:12s} [{rec['shape']}] "
+            f"bitwise_equal={rec['bitwise_equal']} "
+            f"kernel_ms={rec['ms']:.4f} wall_ms={rec['wall_ms']:.4f} "
+            f"plain_ms={rec['plain_ms']:.4f} "
+            f"library_ms={rec['library_ms']} bound_ms={rec['bound_ms']:.5f}")
+        if rec["max_abs_err"] != 0:
+            raise AssertionError(f"{rec['name']}: kernel differs from its "
+                                 "plain version")
+    return out
+
+
+# --------------------------------------------------------------------------
+# main phase: the paper geometry under a write / read / scan mix
+# --------------------------------------------------------------------------
+
+class DenseOracle:
+    """numpy equivalent of the dict oracle over keys in [0, 2**bits)."""
+
+    def __init__(self, bits: int):
+        self.val = np.zeros(2 ** bits, np.int32)
+        self.present = np.zeros(2 ** bits, bool)
+
+    def insert(self, keys, vals):
+        uniq, first = np.unique(keys[::-1], return_index=True)  # last wins
+        self.val[uniq] = vals[::-1][first]
+        self.present[uniq] = True
+
+    def delete(self, keys):
+        self.present[keys] = False
+
+    def window(self, lo, hi):
+        ks = np.flatnonzero(self.present[lo:hi]) + lo
+        return ks.astype(np.int32), self.val[ks]
+
+
+class Clock:
+    """Accumulated host time of the `with` blocks, each closed by a
+    device synchronize (the engine's answers are host arrays, so the
+    device work of a call is done when it returns)."""
+
+    def __init__(self):
+        self.total = 0.0
+
+    def __enter__(self):
+        import torch
+        torch.cuda.synchronize()
+        self._t0 = time.perf_counter()
+
+    def __exit__(self, *exc):
+        import torch
+        torch.cuda.synchronize()
+        self.total += time.perf_counter() - self._t0
+
+
+def wrap_sum(vals) -> int:
+    return int(np.int64(vals.astype(np.int64).sum() + 2 ** 31) % 2 ** 32
+               - 2 ** 31)
+
+
+def check_scans(oracle, wins, keys, vals, counts, trunc):
+    """Every row a correct sorted prefix; complete when not truncated."""
+    for i, (lo, hi) in enumerate(wins):
+        ek, ev = oracle.window(int(lo), int(hi))
+        c = int(counts[i])
+        if not trunc[i] and c != len(ek):
+            raise AssertionError(f"scan {lo}:{hi} has {c} keys, expected "
+                                 f"{len(ek)}")
+        if c > len(ek) or not (np.array_equal(keys[i, :c], ek[:c])
+                               and np.array_equal(vals[i, :c], ev[:c])):
+            raise AssertionError(f"scan {lo}:{hi} is not a correct prefix")
+
+
+def main_phase(device, seed: int, n_writes: int):
+    import torch
+    from repro_torch.configs.slsm_paper import paper_params
+    from repro_torch.engine import SLSM
+
+    p = paper_params(merge_budget=1, range_cand=512)
+    rng = np.random.default_rng(seed + 1)
+    eng = SLSM(p, device=device)
+    oracle = DenseOracle(KEY_BITS)
+    rounds = 80
+    per = n_writes // rounds
+    n_del = per // 10
+    written = []
+    n_ops = 0
+    clock = Clock()
+    for r in range(rounds):
+        ks = rng.integers(0, 2 ** KEY_BITS, per, dtype=np.int32)
+        vs = rng.integers(-2 ** 31, 2 ** 31 - 1, per, dtype=np.int32)
+        written.append(ks)
+        pool = np.concatenate(written)
+        dels = pool[rng.integers(0, pool.size, n_del)]
+        with clock:
+            eng.insert(ks, vs)
+            eng.delete(dels)
+        oracle.insert(ks, vs)
+        oracle.delete(dels)
+        n_ops += per + n_del
+    t_write = clock.total
+    pool = np.concatenate(written)
+
+    # reads scale with the write volume (2**20 lookups and 2048 scans at
+    # the default 8M writes) so a rehearsal with fewer writes stays short
+    scale = n_writes / 8_000_000
+    n_q = max(LOOKUP_BATCH, round(scale * 256) * LOOKUP_BATCH)
+    qs = np.concatenate([pool[rng.integers(0, pool.size, n_q // 2)],
+                         rng.integers(2 ** KEY_BITS, 2 ** (KEY_BITS + 1),
+                                      n_q - n_q // 2, dtype=np.int32)])
+    qs = rng.permutation(qs).astype(np.int32)
+    clock = Clock()
+    got_v, got_f = [], []
+    for i in range(0, n_q, LOOKUP_BATCH):
+        with clock:
+            v, f = eng.lookup_many(qs[i:i + LOOKUP_BATCH])
+        got_v.append(v)
+        got_f.append(f)
+    t_lookup = clock.total
+    got_v, got_f = np.concatenate(got_v), np.concatenate(got_f)
+    inside = qs < 2 ** KEY_BITS
+    want_f = np.zeros(n_q, bool)
+    want_f[inside] = oracle.present[qs[inside]]
+    if not np.array_equal(got_f, want_f):
+        raise AssertionError(f"lookup found-flags differ on "
+                             f"{int((got_f != want_f).sum())} keys")
+    if not np.array_equal(got_v[got_f], oracle.val[qs[got_f]]):
+        raise AssertionError("lookup values differ from the oracle")
+
+    n_scan = max(SCAN_BATCH, round(scale * 64) * SCAN_BATCH)
+    lo = rng.integers(0, 2 ** KEY_BITS - 256, n_scan, dtype=np.int32)
+    wins = np.stack([lo, lo + 256], axis=1)
+    clock = Clock()
+    n_trunc = 0
+    for i in range(0, n_scan, SCAN_BATCH):
+        w = wins[i:i + SCAN_BATCH]
+        with clock:
+            k, v, c, tr = eng.range_many(w)
+        check_scans(oracle, w, k, v, c, tr)
+        n_trunc += int(tr.sum())
+    t_scan = clock.total
+
+    n_agg_trunc = 0
+    alo = rng.integers(0, 2 ** KEY_BITS - 256, n_scan, dtype=np.int32)
+    awins = np.stack([alo, alo + 256], axis=1)
+    clock = Clock()
+    for i in range(0, n_scan, SCAN_BATCH):
+        w = awins[i:i + SCAN_BATCH]
+        with clock:
+            c, s, tr = eng.aggregate_many(w)
+        for j, (a, b) in enumerate(w):
+            if tr[j]:
+                n_agg_trunc += 1
+                continue
+            ek, ev = oracle.window(int(a), int(b))
+            if int(c[j]) != len(ek) or int(s[j]) != wrap_sum(ev):
+                raise AssertionError(f"aggregate {a}:{b} differs")
+    t_agg = clock.total
+    if eng.n_levels != 2:
+        raise AssertionError(f"expected 2 disk levels, got {eng.n_levels}")
+    return eng, dict(
+        write_ops=n_ops, write_s=t_write, insert_ops_per_s=n_ops / t_write,
+        lookups=n_q, lookup_ops_per_s=n_q / t_lookup,
+        scans=n_scan, scans_per_s=n_scan / t_scan, scans_truncated=n_trunc,
+        aggregates=n_scan, aggregates_per_s=n_scan / t_agg,
+        aggregates_truncated=n_agg_trunc,
+        live_keys=int(oracle.present.sum()), n_levels=eng.n_levels,
+        resident_records=eng.n_live,
+        stats={k: int(v) for k, v in eng.stats.items()})
+
+
+def profile_phase(eng, seed: int):
+    """Where the time goes, per flow of the main path: a short window of
+    each flow run once unprofiled (host wall time) and once under
+    torch.profiler (device time of every kernel it saw). The device-busy
+    share is the device time over the unprofiled wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(seed + 3)
+    ks = rng.integers(0, 2 ** KEY_BITS, 40 * eng.p.Rn, dtype=np.int32)
+    vs = rng.integers(-2 ** 31, 2 ** 31 - 1, ks.size, dtype=np.int32)
+    qs = rng.integers(0, 2 ** (KEY_BITS + 1), 8 * LOOKUP_BATCH,
+                      dtype=np.int32)
+    lo = rng.integers(0, 2 ** KEY_BITS - 256, 4 * SCAN_BATCH, dtype=np.int32)
+    wins = np.stack([lo, lo + 256], axis=1)
+    flows = {
+        "write": lambda: eng.insert(ks, vs),
+        "lookup": lambda: [eng.lookup_many(qs[i:i + LOOKUP_BATCH])
+                           for i in range(0, qs.size, LOOKUP_BATCH)],
+        "scan": lambda: [eng.range_many(wins[i:i + SCAN_BATCH])
+                         for i in range(0, len(wins), SCAN_BATCH)],
+        "aggregate": lambda: [eng.aggregate_many(wins[i:i + SCAN_BATCH])
+                              for i in range(0, len(wins), SCAN_BATCH)],
+    }
+    out = {}
+    for name, fn in flows.items():
+        clock = Clock()
+        with clock:
+            fn()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        by_name = device_us_by_name(prof)
+        busy_ms = sum(by_name.values()) / 1e3
+        out[name] = dict(
+            wall_ms=clock.total * 1e3, device_ms=busy_ms,
+            device_busy_share=(busy_ms / (clock.total * 1e3) if busy_ms
+                               else "not measured"),
+            top=[(k[:48], round(us / 1e3, 4))
+                 for k, us in by_name.most_common(6)])
+    return out
+
+
+def cascade_phase(device, seed: int):
+    """Scaled geometry through deepest-level compactions."""
+    from repro_torch.core.oracle import DictOracle
+    from repro_torch.core.params import SLSMParams
+    from repro_torch.engine import SLSM
+
+    p = SLSMParams(R=8, Rn=256, eps=1e-3, D=4, m=1.0, mu=64, max_levels=3,
+                   merge_budget=0, range_cand=512)
+    assert [p.level_cap(i) for i in range(3)] == [2048, 8192, 131072]
+    rng = np.random.default_rng(seed + 2)
+    eng, oracle = SLSM(p, device=device), DictOracle()
+    for _ in range(100):
+        ks = rng.integers(0, 2 ** 16, 3000, dtype=np.int32)
+        vs = rng.integers(-2 ** 31, 2 ** 31 - 1, 3000, dtype=np.int32)
+        eng.insert(ks, vs)
+        oracle.insert(ks, vs)
+        dels = rng.integers(0, 2 ** 16, 1000, dtype=np.int32)
+        eng.delete(dels)
+        oracle.delete(dels)
+    qs = np.arange(-8, 2 ** 16 + 8, dtype=np.int32)
+    v, f = eng.lookup_many(qs)
+    vo, fo = oracle.lookup(qs)
+    if not (np.array_equal(f, fo) and np.array_equal(v[f], vo[fo])):
+        raise AssertionError("cascade lookups differ from the oracle")
+    lo = rng.integers(0, 2 ** 16, 64, dtype=np.int32)
+    wins = np.stack([lo, lo + rng.integers(1, 400, 64, dtype=np.int32)], 1)
+    k, vv, c, tr = eng.range_many(wins)
+    for i, (a, b) in enumerate(wins):
+        ek, ev = oracle.range(int(a), int(b))
+        ci = int(c[i])
+        if (not tr[i] and ci != len(ek)) or ci > len(ek) or not (
+                np.array_equal(k[i, :ci], ek[:ci])
+                and np.array_equal(vv[i, :ci], ev[:ci])):
+            raise AssertionError(f"cascade scan {a}:{b} differs")
+    c, s, tr = eng.aggregate_many(wins)
+    for i, (a, b) in enumerate(wins):
+        if not tr[i] and (int(c[i]), int(s[i])) != oracle.aggregate(
+                int(a), int(b)):
+            raise AssertionError(f"cascade aggregate {a}:{b} differs")
+    if eng.stats["compactions"] < 1 or eng.stats["rows_annihilated"] <= 0:
+        raise AssertionError(f"no annihilating compaction: {eng.stats}")
+    return dict(compactions=eng.stats["compactions"],
+                rows_annihilated=eng.stats["rows_annihilated"],
+                spills=eng.stats["spills"], n_levels=eng.n_levels,
+                live_keys=len(oracle.d))
+
+
+# --------------------------------------------------------------------------
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--writes", type=int, default=8_000_000,
+                    help="main-phase inserts (800 per 8000 become deletes "
+                         "on top); lower only for a rehearsal")
+    args = ap.parse_args()
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this smoke runs on the card",
+              file=sys.stderr)
+        return 2
+    if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
+        print("chip_smoke: src/repro_torch not found beside this script",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs.slsm_paper import paper_params
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import bloom_probe as KBP
+    from repro_torch.kernels import fence_lookup as KFL
+    from repro_torch.kernels import heap_merge as KHM
+    from repro_torch.kernels import range_merge as KRM
+
+    device = torch.device("cuda")
+    name = torch.cuda.get_device_name(0)
+    count = torch.cuda.device_count()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout.strip()
+    card = smi.splitlines()[0]
+    log(f"device: {name} count={count} torch={torch.__version__} "
+        f"cuda={torch.version.cuda}")
+    print(smi, flush=True)
+
+    build_s = _build.build_all()
+    log(f"build: {len(_build.sources())} kernels with nvcc "
+        f"{' '.join(_build.NVCC_FLAGS[:2])} in {build_s:.1f} s")
+    for src, text in sorted(_build.build_log().items()):
+        for line in text.splitlines():
+            if "registers" in line:
+                log(f"  ptxas {src}: {line.strip()}")
+
+    rng = np.random.default_rng(args.seed)
+    kernels = kernel_phase(paper_params(merge_budget=1, range_cand=512),
+                           device, rng)
+
+    counters = {"bloom_probe": KBP.bloom_probe_many,
+                "fence_lookup": KFL.fence_lookup_many,
+                "heap_merge": KHM.merge_round,
+                "range_merge": KRM.merge_round}
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    eng, main = main_phase(device, args.seed, args.writes)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    main["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    log(f"main [{card}]: " + json.dumps(main))
+    log(f"main launches: {launches}")
+    missing = [k for k, n in launches.items() if n == 0]
+    if missing:
+        raise AssertionError(f"main path never launched: {missing}")
+    for flow, rec in profile_phase(eng, args.seed).items():
+        log(f"profile {flow} [{card}]: " + json.dumps(rec))
+    del eng
+
+    cascade = cascade_phase(device, args.seed)
+    log(f"cascade [{card}]: " + json.dumps(cascade))
+
+    for rec in kernels:
+        rec["launches"] = launches[rec["name"]]
+        rec["card"] = card
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": count}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,102 @@
+"""Sorted-run primitives: sort, weighted survivor dedup, k-way merge, fences.
+
+The port of `repro.core.runs` on the Z-set record algebra: a record is
+``(key, weight, seq | payload)``, weight +1 for an insert and -1 for a
+delete, one tensor per lane. Runs are sorted by (key, seq) and padded
+with KEY_EMPTY; the newest record of each key (the last of its equal-key
+block) carries the telescoped weight sum; annihilation (dropping keys
+whose newest weight is <= 0) happens only in merges into the deepest
+data. Merges move the (key, weight, seq, source-index) lanes and gather
+the payload once, for surviving rows.
+
+Trap T2 (two-key sort): the reference's ``lax.sort(num_keys=2)`` becomes
+one stable sort of the int64 ``(key << 32) | seq``. Seqs are
+non-negative int32, so the low word orders exactly as seq does.
+Trap T3 (int32 reductions): counts come back as int32.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.params import KEY_EMPTY
+
+_KEY_MIN = int(torch.iinfo(torch.int32).min)
+_KEY_EMPTY = int(KEY_EMPTY)
+
+
+def composite(keys: torch.Tensor, seqs: torch.Tensor) -> torch.Tensor:
+    """int64 sort key ordering lexicographically by (key, seq) for
+    seq >= 0 (trap T2)."""
+    return (keys.to(torch.int64) << 32) | seqs.to(torch.int64)
+
+
+def sort_records(keys, vals, wts, seqs):
+    """Sort by (key, seq); vals/wts ride as payload. Sentinels sort to
+    the end. Returns (keys, vals, wts, seqs)."""
+    order = torch.sort(composite(keys, seqs), dim=-1, stable=True).indices
+    return (keys.gather(-1, order), vals.gather(-1, order),
+            wts.gather(-1, order), seqs.gather(-1, order))
+
+
+def survivor_mask(keys: torch.Tensor, wts: torch.Tensor,
+                  drop_annihilated: bool) -> torch.Tensor:
+    """Valid-mask over a (key, seq)-sorted run: keep the newest record of
+    each key; drop padding; when `drop_annihilated`, drop keys whose
+    newest weight is <= 0."""
+    nxt = torch.cat([keys[1:], keys.new_full((1,), _KEY_EMPTY)])
+    valid = (keys != _KEY_EMPTY) & (keys != nxt)
+    if drop_annihilated:
+        valid &= wts > 0
+    return valid
+
+
+def partition_order(valid: torch.Tensor) -> torch.Tensor:
+    """Stable permutation moving `valid` lanes to the front."""
+    return torch.sort((~valid).to(torch.int32), stable=True).indices
+
+
+def compact(keys, vals, wts, seqs, valid):
+    """Stable-partition valid elements to the front; pad the rest.
+    Returns (keys, vals, wts, seqs, count)."""
+    order = partition_order(valid)
+    ok = valid[order]
+    keys = torch.where(ok, keys[order], _KEY_EMPTY)
+    vals = torch.where(ok, vals[order], 0)
+    wts = torch.where(ok, wts[order], 0)
+    seqs = torch.where(ok, seqs[order], 0)
+    return keys, vals, wts, seqs, valid.sum().to(torch.int32)
+
+
+def merge_runs(keys2d, vals2d, wts2d, seqs2d, drop_annihilated: bool):
+    """Merge k sorted runs (k, cap) -> one compacted run (k*cap,).
+
+    Sort-based: one stable sort of the (key, seq) composite moves the
+    (key, weight, seq, source-index) lanes; the payload is gathered
+    through the survivors' source indices at the end.
+    Returns (keys, vals, wts, seqs, count)."""
+    k, w, s = keys2d.reshape(-1), wts2d.reshape(-1), seqs2d.reshape(-1)
+    order = torch.sort(composite(k, s), stable=True).indices
+    k, w, s = k[order], w[order], s[order]
+    valid = survivor_mask(k, w, drop_annihilated)
+    part = partition_order(valid)
+    ok = valid[part]
+    keys = torch.where(ok, k[part], _KEY_EMPTY)
+    wts = torch.where(ok, w[part], 0)
+    seqs = torch.where(ok, s[part], 0)
+    vals = torch.where(ok, vals2d.reshape(-1)[order[part]], 0)
+    return keys, vals, wts, seqs, valid.sum().to(torch.int32)
+
+
+def build_fences(keys: torch.Tensor, mu: int, n_fences: int) -> torch.Tensor:
+    """Fence pointers (paper 2.4): the key at every mu-th slot."""
+    idx = torch.arange(n_fences, dtype=torch.int64, device=keys.device) * mu
+    return keys[idx.clamp(0, keys.shape[0] - 1)]
+
+
+def run_minmax(keys: torch.Tensor, count: torch.Tensor):
+    """(min, max) key of a compacted sorted run (paper 2.3 min/max
+    filter), as 0-d int32 tensors."""
+    last = keys[(count.to(torch.int64) - 1).clamp(min=0)]
+    mn = torch.where(count > 0, keys[0], _KEY_EMPTY)
+    mx = torch.where(count > 0, last, _KEY_MIN)
+    return mn.to(torch.int32), mx.to(torch.int32)

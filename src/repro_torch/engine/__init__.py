@@ -1,0 +1,19 @@
+"""The sLSM engine on PyTorch (port of `repro.engine`, single tree).
+
+Layer map:
+  backend.py    — the four kernel slots + fence/gate helpers
+  batching.py   — the pad/bucket grid of the batched entry points
+  memtable.py   — staging buffer (active run) + sealed memory runs
+  levels.py     — disk-tier state: runs, Bloom filters, fences, min/max
+  compaction.py — the Do-Merge cascade ops + tiering/leveling policies
+  scheduler.py  — the cascade as paced, bounded MergeSteps (merge_budget)
+  read_path.py  — dense lookups, range scans, aggregates
+  engine.py     — the host-side `SLSM` engine
+"""
+from repro_torch.engine.compaction import (CompactionPolicy,  # noqa: F401
+                                           LevelingPolicy, TieringPolicy)
+from repro_torch.engine.engine import SLSM, reject_reserved  # noqa: F401
+from repro_torch.engine.levels import LevelState  # noqa: F401
+from repro_torch.engine.memtable import SLSMState, init_state  # noqa: F401
+from repro_torch.engine.scheduler import (MergeScheduler,  # noqa: F401
+                                          MergeStep)

@@ -1,0 +1,81 @@
+"""Ops-dispatch layer: the engine's four hot primitives and their helpers.
+
+The reference picks its primitives by `SLSMParams.backend` ("jnp" or
+"pallas"). The port picks by device instead: each of the four slots is a
+kernel wrapper from `repro_torch.kernels`, which launches the CUDA kernel
+for CUDA tensors and runs its plain PyTorch version for CPU tensors.
+
+  bloom_probe_many:  (blooms (D, W) i32, qs (Q,), k, bits) -> (D, Q) bool
+  fence_lookup_many: (qs (Q,), fences (D, F), keys (D, cap), counts (D,),
+                      mu) -> (D, Q) i32 idx | -1
+  merge_runs:        (keys (k, cap), vals, wts, seqs, drop)
+                     -> (keys, vals, wts, seqs, count)   [heap_merge]
+  range_merge:       (keys (Q, C), vals, wts, seqs, offsets (Q, P+1),
+                      drop) -> (keys, vals, wts, seqs, keep)
+
+The helpers around them (`strided_fences`, `fence_window_idx`,
+`fence_window_bounds`, `candidate_gate`, `lookup_level_many`) are plain
+tensor code on either device.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.bloom_probe import bloom_probe_many
+from repro_torch.kernels.fence_lookup import fence_lookup_many
+from repro_torch.kernels.fence_lookup.ops import page_search
+from repro_torch.kernels.heap_merge import heap_merge as merge_runs
+from repro_torch.kernels.range_merge import range_merge
+
+__all__ = ["bloom_probe_many", "fence_lookup_many", "merge_runs",
+           "range_merge", "strided_fences", "fence_window_idx",
+           "fence_window_bounds", "candidate_gate", "lookup_level_many"]
+
+
+def strided_fences(fences: torch.Tensor, stride: int) -> torch.Tensor:
+    """A level's effective fence array under the stride view: every
+    stride-th fence (an (mu*stride)-wide page window). Stride 1 returns
+    the physical array untouched."""
+    return fences[:, ::stride].contiguous() if stride > 1 else fences
+
+
+def fence_window_idx(queries, fences, keys, count, mu: int) -> torch.Tensor:
+    """Fence-pointer lookup on one disk run (paper 2.4): binary-search the
+    fences, then the mu-wide page they bound. Returns the element index
+    of the hit, or -1."""
+    return fence_lookup_many(queries, fences[None], keys[None],
+                             count.reshape(1), mu)[0]
+
+
+def candidate_gate(qs, blooms, mins, maxs, k: int,
+                   bits: int | None = None) -> torch.Tensor:
+    """(D, Q) candidate mask over one level's runs: min/max window AND
+    Bloom positive (paper 2.3)."""
+    inwin = (qs[None, :] >= mins[:, None]) & (qs[None, :] <= maxs[:, None])
+    return inwin & bloom_probe_many(blooms, qs, k, bits)
+
+
+def lookup_level_many(qs, blooms, mins, maxs, fences, keys, counts, k: int,
+                      mu: int, bits: int | None = None):
+    """One candidate pass over all D runs of a level for Q queries: one
+    Bloom-probe launch and one fence-search launch cover every (run,
+    query) pair. Returns ``(hit (D, Q) bool, idx (D, Q) i32)``; ``idx``
+    is clamped to a gatherable index (meaningful only where ``hit``)."""
+    gate = candidate_gate(qs, blooms, mins, maxs, k, bits)
+    idx = fence_lookup_many(qs, fences, keys, counts, mu)
+    return gate & (idx >= 0), idx.clamp(min=0)
+
+
+def fence_window_bounds(lo, hi, fences, keys, counts, mu: int):
+    """[start, end) element bounds of each window [lo, hi) in each of a
+    level's D runs, located through the fence pointers (paper 2.4/2.9):
+    the page each bound falls in, then a search inside that mu-wide page.
+    lo/hi (Q,), fences (D, F), keys (D, cap), counts (D,) -> (start, end)
+    (D, Q) int32 with start <= end <= count."""
+    def locate(q):
+        start, off, _ = page_search(q, fences, keys, mu)
+        return start + off
+
+    start, end = locate(lo), locate(hi)
+    end = torch.minimum(end, counts[:, None].to(end.dtype))
+    return torch.minimum(start, end).to(torch.int32), end.to(torch.int32)

@@ -1,0 +1,305 @@
+"""Read path (paper 2.7/2.9): point lookups, range scans, aggregates.
+
+Lookups walk newest -> oldest across every structure — staging buffer,
+sealed memory runs, then each disk level — keeping the match with the
+highest seqno; presence is the sign of the newest record's weight. Disk
+levels are gated by min/max windows AND Bloom positives (paper 2.3):
+one `bloom_probe` launch and one `fence_lookup` launch per level cover
+every (run, query) pair (`backend.lookup_level_many`).
+
+Range scans run the fence-pruned scan engine: every structure's window
+bounds come through the fence machinery, the in-window extents are
+gathered front-compacted into one candidate row of width
+`range_cand_eff`, and the `range_merge` tournament returns the rows in
+(key, seq) order with the survivor mask. `aggregate_many` reduces the
+same mask to count/sum.
+
+PyTorch runs eagerly, so the reference's `*_impl` forms and their jitted
+wrappers are one function here. Only the dense lookup is ported; the
+sparse (Bloom-compacted) lookup and `level_probe_stats` come later.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.params import KEY_EMPTY, SEQ_NONE, SLSMParams
+from repro_torch.engine import backend as BE
+from repro_torch.engine.levels import LevelState
+from repro_torch.engine.memtable import SLSMState
+
+I32 = torch.int32
+_KEY_EMPTY = int(KEY_EMPTY)
+_SEQ_NONE = int(SEQ_NONE)
+
+
+def wrap_i32(x: torch.Tensor) -> torch.Tensor:
+    """int64 -> int32 with two's-complement wraparound (trap T3: a torch
+    sum of int32 is int64; the reference's int32 sums wrap)."""
+    return (((x + 2 ** 31) % 2 ** 32) - 2 ** 31).to(I32)
+
+
+def consider(best_seq, best_val, best_wt, seq_c, val_c, wt_c):
+    """Newest-wins fold (paper 2.7): keep the candidate iff its seqno is
+    higher."""
+    take = seq_c > best_seq
+    return (torch.where(take, seq_c, best_seq),
+            torch.where(take, val_c, best_val),
+            torch.where(take, wt_c, best_wt))
+
+
+def _pick_newest(seqs, vals, wts):
+    """Per query (column) the row with the highest seqno (first on ties,
+    as `argmax` picks)."""
+    j = torch.argmax(seqs, dim=0, keepdim=True)
+    return seqs.gather(0, j)[0], vals.gather(0, j)[0], wts.gather(0, j)[0]
+
+
+def search_stage(state: SLSMState, qs: torch.Tensor):
+    """Probe the staging buffer for Q queries; per-query (seq, val, wt)
+    with seq=SEQ_NONE on a miss."""
+    eq = state.stage_keys[None, :] == qs[:, None]            # (Q, 2Rn)
+    seqm = torch.where(eq, state.stage_seqs[None, :], _SEQ_NONE)
+    j = torch.argmax(seqm, dim=1)
+    seq_c = seqm.gather(1, j[:, None])[:, 0]
+    hit = seq_c >= 0
+    return (seq_c, torch.where(hit, state.stage_vals[j], 0),
+            torch.where(hit, state.stage_wts[j], 0))
+
+
+def search_memory_runs(state: SLSMState, qs: torch.Tensor):
+    """All R sealed memory runs in one pass (paper 2.2/2.7): a binary
+    search per (run, query), newest-wins across runs."""
+    keys = state.buf_keys
+    r_n, rn = keys.shape
+    i = torch.searchsorted(keys, qs.expand(r_n, -1).contiguous())  # (R, Q)
+    ic = i.clamp(max=rn - 1)
+    hit = (i < state.buf_counts[:, None]) & (keys.gather(1, ic) == qs)
+    return _pick_newest(
+        torch.where(hit, state.buf_seqs.gather(1, ic), _SEQ_NONE),
+        torch.where(hit, state.buf_vals.gather(1, ic), 0),
+        torch.where(hit, state.buf_wts.gather(1, ic), 0))
+
+
+def search_level_dense(p: SLSMParams, lv: LevelState, level: int,
+                       qs: torch.Tensor):
+    """Exact disk-level search: one fused Bloom-probe + fence-search pass
+    over all (run, query) pairs, then newest-wins across the D runs."""
+    bits, _, kk = p.bloom_geometry(p.level_cap(level), p.level_eps(level))
+    stride, mu_eff = p.fence_view(level)
+    fences = BE.strided_fences(lv.fences, stride)
+    hit, idxc = BE.lookup_level_many(qs, lv.blooms, lv.mins, lv.maxs,
+                                     fences, lv.keys, lv.counts, kk, mu_eff,
+                                     bits)
+    idxc = idxc.long()
+    return _pick_newest(
+        torch.where(hit, lv.seqs.gather(1, idxc), _SEQ_NONE),
+        torch.where(hit, lv.vals.gather(1, idxc), 0),
+        torch.where(hit, lv.wts.gather(1, idxc), 0))
+
+
+def lookup_batch(p: SLSMParams, state: SLSMState, qs: torch.Tensor):
+    """Point lookups, newest-to-oldest across every structure (paper
+    2.7). Returns (vals, found); deleted keys report found=False."""
+    qs = qs.to(I32)
+    best = search_stage(state, qs)
+    best = consider(*best, *search_memory_runs(state, qs))
+    for level, lv in enumerate(state.levels):
+        best = consider(*best, *search_level_dense(p, lv, level, qs))
+    best_seq, best_val, best_wt = best
+    found = (best_seq >= 0) & (best_wt > 0)
+    return torch.where(found, best_val, 0), found
+
+
+def lookup_many(p: SLSMParams, state: SLSMState, qs: torch.Tensor,
+                n_valid: int):
+    """Padded-batch point lookup: `lookup_batch` over qs[:n_valid]; padded
+    lanes report found=False, val=0."""
+    vals, found = lookup_batch(p, state, qs)
+    lane = torch.arange(qs.shape[0], device=qs.device) < n_valid
+    found = found & lane
+    return torch.where(found, vals, 0), found
+
+
+# --------------------------------------------------------------------------
+# range queries (paper 2.9) — the fence-pruned scan engine
+# --------------------------------------------------------------------------
+
+def _range_group_bounds(p: SLSMParams, state: SLSMState, los: torch.Tensor,
+                        his: torch.Tensor):
+    """Per-structure [start, end) window bounds for Q scans: a list of
+    ``(keys2d (N, cap), vals2d, wts2d, seqs2d, starts (Q, N),
+    ends (Q, N))`` groups — the staging buffer, the sealed memory runs,
+    then each materialized disk level (through its fences).
+
+    Trap T5: the reference skips a level no window touches with a
+    `lax.cond`; here the bounds are always computed and replaced by
+    zeros when nothing is touched, so `starts` (which the budget cut
+    reads) match the reference."""
+    q_n = los.shape[0]
+
+    def sorted_bounds(keys, counts):
+        # keys (N, cap) sorted rows, counts (N,) -> (N, Q) bounds
+        n = keys.shape[0]
+        start = torch.searchsorted(keys, los.expand(n, -1).contiguous())
+        end = torch.minimum(
+            torch.searchsorted(keys, his.expand(n, -1).contiguous()),
+            counts[:, None].long())
+        return torch.minimum(start, end).to(I32), end.to(I32)
+
+    groups = []
+    st, en = sorted_bounds(state.stage_keys[None], state.stage_count[None])
+    groups.append((state.stage_keys[None], state.stage_vals[None],
+                   state.stage_wts[None], state.stage_seqs[None],
+                   st.T, en.T))
+    st, en = sorted_bounds(state.buf_keys, state.buf_counts)
+    groups.append((state.buf_keys, state.buf_vals, state.buf_wts,
+                   state.buf_seqs, st.T, en.T))
+    for level, lv in enumerate(state.levels):
+        stride, mu_eff = p.fence_view(level)
+        fences = BE.strided_fences(lv.fences, stride)
+        st, en = BE.fence_window_bounds(los, his, fences, lv.keys, lv.counts,
+                                        mu_eff)
+        touched = ((lv.mins[None, :] < his[:, None])
+                   & (lv.maxs[None, :] >= los[:, None])
+                   & (lv.counts[None, :] > 0)).any()
+        st = torch.where(touched, st.T, 0)
+        en = torch.where(touched, en.T, 0)
+        groups.append((lv.keys, lv.vals, lv.wts, lv.seqs, st, en))
+    return groups
+
+
+def _gather_candidates(p: SLSMParams, state: SLSMState, los: torch.Tensor,
+                       his: torch.Tensor):
+    """Front-compacted candidate gather shared by the range and aggregate
+    engines: fence-prune every structure to its in-window extent, fill
+    the ``range_cand_eff`` budget part by part, and cut everything at or
+    past the first key any structure's extent was cut at (so dedup over
+    the survivors stays exact).
+
+    Returns ``(k, v, w, s, offsets, partial)``: (Q, C) candidate lanes
+    (KEY_EMPTY / zero past each row's fill), (Q, P+1) int32 segment
+    boundaries and the (Q, P) per-part overflow flags."""
+    cand = p.range_cand_eff(len(state.levels))
+    q_n = los.shape[0]
+    dev = los.device
+
+    groups = _range_group_bounds(p, state, los, his)
+    starts = torch.cat([g[4] for g in groups], dim=1).long()   # (Q, P)
+    ends = torch.cat([g[5] for g in groups], dim=1).long()
+    exts = (ends - starts).clamp(min=0)
+    n_parts = starts.shape[1]
+
+    # sequential budget fill: part p gets clip(C - cum_p, 0, ext_p) slots
+    cum_full = torch.cumsum(exts, dim=1)
+    cum_full_ex = torch.cat([exts.new_zeros((q_n, 1)), cum_full[:, :-1]],
+                            dim=1)
+    taken = torch.minimum((cand - cum_full_ex).clamp(min=0), exts)
+    partial = taken < exts
+    offsets = torch.cat([taken.new_zeros((q_n, 1)),
+                         torch.cumsum(taken, dim=1)], dim=1)
+    total = offsets[:, -1]
+
+    # lane j of a row belongs to the part whose span covers j
+    j = torch.arange(cand, device=dev)
+    part = torch.searchsorted(offsets, j.expand(q_n, -1).contiguous(),
+                              right=True) - 1                   # (Q, C)
+    part_c = part.clamp(0, n_parts - 1)
+    src = starts.gather(1, part_c) + j[None, :] - offsets.gather(1, part_c)
+
+    k = torch.full((q_n, cand), _KEY_EMPTY, dtype=I32, device=dev)
+    v = torch.zeros((q_n, cand), dtype=I32, device=dev)
+    w = torch.zeros_like(v)
+    s = torch.zeros_like(v)
+    cut_keys = torch.full((q_n, n_parts), _KEY_EMPTY, dtype=I32, device=dev)
+    g0 = 0
+    for gk, gv, gw, gs, gst, _ in groups:
+        n_g, cap_g = gk.shape
+        in_g = (part >= g0) & (part < g0 + n_g) & (j[None, :] < total[:, None])
+        flat = ((part - g0).clamp(0, n_g - 1) * cap_g
+                + src.clamp(0, cap_g - 1))
+        k = torch.where(in_g, gk.reshape(-1)[flat], k)
+        v = torch.where(in_g, gv.reshape(-1)[flat], v)
+        w = torch.where(in_g, gw.reshape(-1)[flat], w)
+        s = torch.where(in_g, gs.reshape(-1)[flat], s)
+        cut_idx = (gst.long() + taken[:, g0:g0 + n_g]).clamp(0, cap_g - 1)
+        d_iota = torch.arange(n_g, device=dev)[None, :]
+        cut_keys[:, g0:g0 + n_g] = torch.where(
+            partial[:, g0:g0 + n_g], gk[d_iota, cut_idx], _KEY_EMPTY)
+        g0 += n_g
+    cut = cut_keys.min(dim=1).values                            # (Q,)
+
+    ok = k < cut[:, None]
+    k = torch.where(ok, k, _KEY_EMPTY)
+    v = torch.where(ok, v, 0)
+    w = torch.where(ok, w, 0)
+    s = torch.where(ok, s, 0)
+    return k, v, w, s, offsets.to(I32), partial
+
+
+def range_scan(p: SLSMParams, state: SLSMState, los: torch.Tensor,
+               his: torch.Tensor):
+    """Q range scans [lo, hi) in one pass (paper 2.9). Returns
+    ``(keys (Q, max_range), vals, counts (Q,), truncated (Q,))``: each
+    row a correct sorted prefix of the window's live keys, `truncated`
+    False iff the row is the whole window."""
+    mr = p.max_range
+    los, his = los.to(I32), his.to(I32)
+    q_n = los.shape[0]
+
+    k, v, w, s, offsets, partial = _gather_candidates(p, state, los, his)
+    k, v, w, s, keep = BE.range_merge(k, v, w, s, offsets, True)
+    live = keep.sum(dim=1).to(I32)
+    pos = torch.cumsum(keep, dim=1) - 1
+    # trap T4: the reference scatters kept lanes to their rank and drops
+    # ranks >= max_range (and every non-kept lane, sent to max_range);
+    # here such lanes land in a spare column that is cut off
+    idx = torch.where(keep, pos, mr).clamp(max=mr)
+    out_k = torch.full((q_n, mr + 1), _KEY_EMPTY, dtype=I32, device=k.device)
+    out_v = torch.zeros((q_n, mr + 1), dtype=I32, device=k.device)
+    out_k.scatter_(1, idx, k)
+    out_v.scatter_(1, idx, v)
+    return (out_k[:, :mr], out_v[:, :mr], live.clamp(max=mr),
+            (live > mr) | partial.any(dim=1))
+
+
+def range_query(p: SLSMParams, state: SLSMState, lo: int, hi: int):
+    """All live (key, value) with lo <= key < hi — one row of
+    `range_scan`. Returns (keys, vals, count, truncated)."""
+    dev = state.stage_keys.device
+    k, v, cnt, trunc = range_scan(
+        p, state, torch.tensor([lo], dtype=I32, device=dev),
+        torch.tensor([hi], dtype=I32, device=dev))
+    return k[0], v[0], cnt[0], trunc[0]
+
+
+def range_many(p: SLSMParams, state: SLSMState, los: torch.Tensor,
+               his: torch.Tensor, n_valid: int):
+    """Padded-batch range scans: `range_scan` over the first n_valid
+    windows; padded lanes report count 0, truncated False."""
+    k, v, cnt, trunc = range_scan(p, state, los, his)
+    lane = torch.arange(los.shape[0], device=los.device) < n_valid
+    return (torch.where(lane[:, None], k, _KEY_EMPTY),
+            torch.where(lane[:, None], v, 0),
+            torch.where(lane, cnt, 0), trunc & lane)
+
+
+# --------------------------------------------------------------------------
+# aggregates — count / sum over a window, riding the scan machinery
+# --------------------------------------------------------------------------
+
+def aggregate_many(p: SLSMParams, state: SLSMState, los: torch.Tensor,
+                   his: torch.Tensor, n_valid: int):
+    """Q windowed aggregates ``count(lo, hi)`` and ``sum(lo, hi)`` over
+    the live keys of each window, from the merged keep mask (no
+    max_range cut). Sums are int32 with wraparound. Returns
+    ``(counts (Q,), sums (Q,), truncated (Q,))``; padded lanes report
+    zeros / False."""
+    los, his = los.to(I32), his.to(I32)
+    k, v, w, s, offsets, partial = _gather_candidates(p, state, los, his)
+    k, v, w, s, keep = BE.range_merge(k, v, w, s, offsets, True)
+    counts = keep.sum(dim=1).to(I32)
+    sums = wrap_i32(torch.where(keep, v, 0).sum(dim=1, dtype=torch.int64))
+    trunc = partial.any(dim=1)
+    lane = torch.arange(los.shape[0], device=los.device) < n_valid
+    return (torch.where(lane, counts, 0), torch.where(lane, sums, 0),
+            trunc & lane)

@@ -1,0 +1,14 @@
+"""Hand-written CUDA kernels of the port, one package each.
+
+Every package holds a plain PyTorch version of its function and a
+wrapper that launches the CUDA kernel from `repro_torch/csrc/` for CUDA
+tensors (counting its launches) and runs the plain version for CPU
+tensors:
+
+  bloom_probe  — Bloom membership over a level's D filters (paper 2.3)
+  fence_lookup — fence-pointer page search over a level's D runs (2.4)
+  heap_merge   — one round of the k-way run-merge tournament (2.5)
+  range_merge  — one round of the range scan's segment merge-dedup (2.9)
+
+`_build` compiles the sources with nvcc at first use.
+"""

@@ -1,0 +1,79 @@
+"""fence_lookup: fence-pointer page search of Q keys in a level's D runs.
+
+The wrapper `fence_lookup_many` launches `csrc/fence_lookup.cu` for CUDA
+tensors and runs `fence_lookup_plain` for CPU tensors. It counts its
+launches in `fence_lookup_many.launches`.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+
+
+def page_search(qs: torch.Tensor, fences: torch.Tensor, keys: torch.Tensor,
+                mu: int):
+    """The fence-pointer search of each query in each of D runs (paper
+    2.4): `upper_bound` over the run's fences, minus one, clamped to a
+    fence, times mu gives the page start — pinned to cap - mu, since a
+    strided fence view can leave a partial last page (the window still
+    covers it; keys are sorted across the whole run) — then the
+    `lower_bound` of the query inside the mu-wide page. Trap T4: the pin
+    and the clamp to 0 are the reference's `dynamic_slice` start clamp,
+    written out. qs (Q,), fences (D, F), keys (D, cap) -> (start (D, Q)
+    int64, offset in the page (D, Q), page (D, Q, mu))."""
+    d_n, cap = keys.shape
+    f = torch.searchsorted(fences, qs.expand(d_n, -1).contiguous(),
+                           right=True) - 1
+    start = (f.clamp(0, fences.shape[1] - 1) * mu).clamp(max=cap - mu)
+    start = start.clamp(min=0)
+    lane = torch.arange(mu, device=keys.device)
+    win = keys.gather(1, (start[:, :, None] + lane).reshape(d_n, -1))
+    win = win.reshape(start.shape + (mu,))
+    return start, (win < qs[None, :, None]).sum(dim=-1), win
+
+
+def fence_lookup_plain(qs, fences, keys, counts, mu: int) -> torch.Tensor:
+    """Plain PyTorch version: qs (Q,), fences (D, F), keys (D, cap),
+    counts (D,) -> (D, Q) int32 element index of each hit, or -1."""
+    start, off, win = page_search(qs, fences, keys, mu)
+    offc = off.clamp(max=mu - 1)
+    hit = ((off < mu)
+           & (win.gather(-1, offc[..., None])[..., 0] == qs[None, :])
+           & (start + offc < counts[:, None]))
+    return torch.where(hit, start + offc, -1).to(torch.int32)
+
+
+def fence_lookup_many(qs, fences, keys, counts, mu: int) -> torch.Tensor:
+    """qs (Q,), fences (D, F), keys (D, cap), counts (D,), page width mu
+    -> (D, Q) int32 hit indices, -1 for misses."""
+    if keys.device.type == "cpu":
+        return fence_lookup_plain(qs, fences, keys, counts, mu)
+    dev = keys.device
+    if keys.device.type != "cuda" or any(t.device != dev
+                                         for t in (qs, fences, counts)):
+        raise ValueError("fence_lookup: all tensors must share one CUDA "
+                         "device (or all lie on the CPU)")
+    if any(t.dtype != torch.int32 for t in (qs, fences, keys, counts)):
+        raise TypeError("fence_lookup: int32 tensors expected")
+    if not all(t.is_contiguous() for t in (qs, fences, keys, counts)):
+        raise ValueError("fence_lookup: contiguous tensors expected")
+    d_n, cap = keys.shape
+    f_n = fences.shape[1]
+    if fences.shape[0] != d_n or counts.shape != (d_n,) or qs.dim() != 1:
+        raise ValueError("fence_lookup: shapes (Q,), (D, F), (D, cap), "
+                         "(D,) expected")
+    if not (f_n >= 1 and f_n * mu >= cap >= mu):
+        raise ValueError("fence_lookup: fences must cover the run")
+    q_n = qs.shape[0]
+    out = torch.empty((d_n, q_n), dtype=torch.int32, device=dev)
+    fn = _build.bind("fence_lookup", "fence_lookup_launch", 5, 5)
+    _build.check(fn(qs.data_ptr(), fences.data_ptr(), keys.data_ptr(),
+                    counts.data_ptr(), out.data_ptr(), d_n, q_n, f_n, cap,
+                    mu, torch.cuda.current_stream(dev).cuda_stream),
+                 "fence_lookup")
+    fence_lookup_many.launches += 1
+    return out
+
+
+fence_lookup_many.launches = 0

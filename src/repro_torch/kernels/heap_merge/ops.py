@@ -1,0 +1,117 @@
+"""heap_merge: the k-way run merge (HeapMerge, paper 2.5) as a tournament.
+
+`heap_merge` merges k sorted runs (k, cap) into one compacted run the
+way the reference's `heap_merge_op` does: log2(k) rounds of two-way
+merges over the (key, weight, seq, source-index) lanes — an odd last run
+is carried to the next round — then the weighted survivor epilogue
+(newest record per key, annihilation when `drop`), a stable compaction
+and one payload gather through the survivors' source indices. The
+layout is identical to `core.runs.merge_runs`.
+
+Each round is one call of `merge_round`, the kernel's wrapper: it
+launches `csrc/heap_merge.cu` over every pair of the round for CUDA
+tensors (counted in `merge_round.launches`) and runs
+`merge_round_plain` for CPU tensors. The epilogue is PyTorch glue on
+both, as it was jnp glue around the Pallas kernel.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import runs as RU
+from repro_torch.core.params import KEY_EMPTY
+from repro_torch.kernels import _build
+
+_KEY_EMPTY = int(KEY_EMPTY)
+
+
+def round_pairs(bounds: list[int]) -> list[tuple[int, int, int]]:
+    """(lo, mid, hi) of each pair of one round over runs laid back to back
+    at `bounds` (n_runs + 1 boundaries); an odd last run pairs with an
+    empty second half."""
+    n_runs = len(bounds) - 1
+    pairs = [(bounds[i], bounds[i + 1], bounds[i + 2])
+             for i in range(0, n_runs - 1, 2)]
+    if n_runs % 2:
+        pairs.append((bounds[-2], bounds[-1], bounds[-1]))
+    return pairs
+
+
+def merge_round_plain(k, w, s, ix, pairs):
+    """Plain PyTorch version of one round: each pair's two runs merged by
+    a stable sort of the (key, seq) composite over the second run's lanes
+    followed by the first's — the merge-path order, where ties go to the
+    second run."""
+    outs = [torch.empty_like(a) for a in (k, w, s, ix)]
+    for lo, mid, hi in pairs:
+        cat = [torch.cat([a[mid:hi], a[lo:mid]]) for a in (k, w, s, ix)]
+        order = torch.sort(RU.composite(cat[0], cat[2]), stable=True).indices
+        for out, a in zip(outs, cat):
+            out[lo:hi] = a[order]
+    return tuple(outs)
+
+
+def merge_round(k, w, s, ix, pairs):
+    """One tournament round: lanes (N,) int32 with runs back to back;
+    `pairs` = list of (lo, mid, hi). Returns the four merged lanes."""
+    if k.device.type == "cpu":
+        return merge_round_plain(k, w, s, ix, pairs)
+    dev = k.device
+    lanes = (k, w, s, ix)
+    if dev.type != "cuda" or any(a.device != dev for a in lanes):
+        raise ValueError("heap_merge: lanes must share one CUDA device "
+                         "(or all lie on the CPU)")
+    if any(a.dtype != torch.int32 or a.dim() != 1 or not a.is_contiguous()
+           or a.shape != k.shape for a in lanes):
+        raise ValueError("heap_merge: four contiguous (N,) int32 lanes "
+                         "expected")
+    if not pairs or pairs[-1][2] > k.shape[0]:
+        raise ValueError("heap_merge: pairs must lie inside the lanes")
+    outs = tuple(torch.empty_like(a) for a in lanes)
+    pt = torch.tensor(pairs, dtype=torch.int64, device=dev)
+    longest = max(hi - lo for lo, _, hi in pairs)
+    fn = _build.bind("heap_merge", "heap_merge_round_launch", 9, 2)
+    _build.check(fn(*(a.data_ptr() for a in lanes), pt.data_ptr(),
+                    *(o.data_ptr() for o in outs), len(pairs), longest,
+                    torch.cuda.current_stream(dev).cuda_stream),
+                 "heap_merge")
+    merge_round.launches += 1
+    return outs
+
+
+merge_round.launches = 0
+
+
+def tournament(k, w, s, ix, cap: int, n_runs: int, round_fn=None):
+    """log2(n_runs) rounds of `round_fn` (default `merge_round`) over runs
+    of `cap` lanes laid back to back; returns the merged (key,
+    seq)-sorted lanes."""
+    round_fn = round_fn or merge_round
+    bounds = [i * cap for i in range(n_runs + 1)]
+    while len(bounds) > 2:
+        k, w, s, ix = round_fn(k, w, s, ix, round_pairs(bounds))
+        bounds = bounds[::2] if len(bounds) % 2 else bounds[::2] + bounds[-1:]
+    return k, w, s, ix
+
+
+def heap_merge(keys2d, vals2d, wts2d, seqs2d, drop_annihilated: bool):
+    """Merge k sorted runs (k, cap) -> compacted run (k*cap,), newest
+    wins. Returns (keys, vals, wts, seqs, count)."""
+    n_runs, cap = keys2d.shape
+    total = n_runs * cap
+    if total >= 2 ** 31:
+        raise ValueError(f"heap_merge: {total} lanes exceed int32 indices")
+    ix = torch.arange(total, dtype=torch.int32, device=keys2d.device)
+    mk, mw, ms, mi = tournament(keys2d.reshape(-1).contiguous(),
+                                wts2d.reshape(-1).contiguous(),
+                                seqs2d.reshape(-1).contiguous(), ix, cap,
+                                n_runs)
+    valid = RU.survivor_mask(mk, mw, drop_annihilated)
+    order = RU.partition_order(valid)
+    ok = valid[order]
+    out_k = torch.where(ok, mk[order], _KEY_EMPTY)
+    out_w = torch.where(ok, mw[order], 0)
+    out_s = torch.where(ok, ms[order], 0)
+    # payload gather — survivors only (annihilated rows never touch vals)
+    out_v = torch.where(ok, vals2d.reshape(-1)[mi[order].long()], 0)
+    return out_k, out_v, out_w, out_s, valid.sum().to(torch.int32)

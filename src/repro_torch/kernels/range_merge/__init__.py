@@ -1,0 +1,3 @@
+"""Range-merge (scan tournament) kernel package."""
+from repro_torch.kernels.range_merge.ops import (  # noqa: F401
+    merge_round, merge_round_plain, range_merge)
