@@ -7,8 +7,8 @@ Phases, in order; any failure raises and exits non-zero:
 
   device   — a CUDA card is required; prints its name, count and power
              limit (nvidia-smi).
-  build    — compiles the four CUDA kernels from `src/repro_torch/csrc`
-             with nvcc for sm_90a.
+  build    — compiles the five CUDA kernels from `src/repro_torch/csrc`
+             with nvcc for sm_90a, one nvcc process each, in parallel.
   kernels  — runs each kernel and its plain PyTorch version on the card
              at the shapes of the paper-geometry main path, requires them
              bitwise equal, and times kernel, plain version and the one
@@ -25,6 +25,25 @@ Phases, in order; any failure raises and exits non-zero:
              device time by kernel and the device-busy share.
   cascade  — the scaled geometry through deepest-level compactions with
              annihilation, checked against the dict oracle.
+  lsm_kernel — the attention kernel against its plain version at the LM
+             path's shapes (tiered [hot | top-k blocks] bf16 and f32, the
+             dense cache of lm_agree; bf16 atol = rtol = 1e-2, f32 atol
+             1e-5 rtol 1e-4), timed beside its plain version and
+             `F.scaled_dot_product_attention` on the same inputs.
+  lm_serve — Phi-4-mini 3.8B at full width (bf16, seeded random
+             weights): `generate(kind="lsm")` for 2 x 24,576-token
+             prompts and 32 new tokens; the kernel launched once per
+             layer per step, every logit finite, 23 cold blocks and 1,055
+             hot tokens at the end; prefill and decode times, the
+             device-busy share of a decode window, peak memory.
+  lm_seal  — on that cache: fill the hot window, seal, check the new
+             block, its summary and the counters, and hold layer 0's
+             kernel output of the next step against the plain version.
+  lm_agree — 2 x 8,192-token prompts (7 cold blocks <= topk 16): tiered
+             and dense decode, teacher-forced, agree to a relative L2 of
+             2e-2 in the logits at every step.
+  lm_small — the smoke-size model (f32) through `generate` on the card
+             and on the CPU gives the same tokens.
 
 The last two lines of standard output are the kernels' JSON record and
 the device record; nothing of JAX or of the reference package is used.
@@ -34,6 +53,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -46,6 +66,11 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory (NVIDIA data sheet)
 LOOKUP_BATCH = 4096
 SCAN_BATCH = 32
 KEY_BITS = 24
+F32_FLOPS = 67e12               # H100 SXM float32 outside the tensor cores
+LM_ARCH = "phi4-mini-3.8b"
+SERVE_PROMPT, SERVE_STEPS = 24_576, 32   # 23 cold blocks + 1,024 hot
+SERVE_HOT = 1_056               # hot tokens a serve step attends at first
+AGREE_PROMPT, AGREE_STEPS = 8_192, 8     # 7 cold blocks <= topk 16
 
 
 def log(*parts) -> None:
@@ -596,6 +621,331 @@ def cascade_phase(device, seed: int):
 
 
 # --------------------------------------------------------------------------
+# LM phases: decode over the sLSM-tiered KV cache, Phi-4-mini at full width
+# --------------------------------------------------------------------------
+
+ATT_TOL = {"bfloat16": dict(atol=1e-2, rtol=1e-2),
+           "float32": dict(atol=1e-5, rtol=1e-4)}
+
+
+def lm_config():
+    from repro_torch.configs import get_config
+    return get_config(LM_ARCH)
+
+
+def att_close(got, want, dtype: str) -> float:
+    """Max abs error of the kernel against its plain version; raises
+    beyond the stated tolerance."""
+    import torch
+    err = float((got.float() - want.float()).abs().max())
+    if not torch.allclose(got.float(), want.float(), **ATT_TOL[dtype]):
+        raise AssertionError(f"lsm_attention differs from its plain version "
+                             f"({dtype}): max abs err {err}")
+    return err
+
+
+def lsm_kernel_phase(device, seed: int):
+    """The attention kernel against its plain version at the LM path's
+    shapes: tiered [hot | top-k blocks] (bf16, and once in f32) and the
+    dense cache of the agreement phase; device times of kernel, plain
+    version and `F.scaled_dot_product_attention` on the same inputs."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.lsm_attention import ops as KLA
+
+    cfg = lm_config()
+    b, h, kv, dh = 2, cfg.n_heads, cfg.n_kv, cfg.hd
+    w, mu, topk = cfg.lsm_hot_window, cfg.lsm_block, cfg.lsm_topk
+    gen = torch.Generator(device).manual_seed(seed + 5)
+    cases = []
+    for name, dtype, length in (
+            ("tiered", "bfloat16", w + topk * mu),
+            ("dense", "bfloat16", AGREE_PROMPT + 2 * AGREE_STEPS),
+            ("tiered", "float32", w + topk * mu)):
+        dt = getattr(torch, dtype)
+        q, k, v = (torch.randn(s, generator=gen, device=device).to(dt)
+                   for s in ((b, h, dh), (b, length, kv, dh),
+                             (b, length, kv, dh)))
+        pos = torch.arange(length, device=device)
+        if name == "tiered":      # serve's hot fill; row 1 misses blocks
+            hot = torch.tensor([[SERVE_HOT], [2 * SERVE_HOT + 7]],
+                               device=device)
+            valid = ((pos < hot) | (pos >= w))[:, None, :].expand(b, kv, -1)
+            valid = valid.clone()
+            valid[1, :kv // 2, w + 12 * mu:] = False
+        else:
+            lens = torch.tensor([[AGREE_PROMPT + 1], [AGREE_PROMPT + 5]],
+                                device=device)
+            valid = (pos < lens)[:, None, :].expand(b, kv, -1).clone()
+        valid = valid.to(torch.int8).contiguous()
+        scale = dh ** -0.5
+        got = KLA.decode_attention(q, k, v, valid, scale)
+        torch.cuda.synchronize()
+        err = att_close(got, KLA.decode_attention_plain(q, k, v, valid,
+                                                        scale), dtype)
+        # bytes: q and out once, the bitmap once, and K and V once for
+        # each valid (b, kv, l) row: the kernel never reads an invalid row
+        n_valid = int(valid.sum())
+        elt = q.element_size()
+        n_bytes = (2 * n_valid * dh * elt + valid.numel()
+                   + 2 * b * h * dh * elt)
+        n_ops = 4 * n_valid * (h // kv) * dh
+        # SDPA yardstick: heads-major K/V and a per-q-head boolean mask,
+        # made outside the timed call
+        ks, vs = (t.transpose(1, 2).contiguous() for t in (k, v))
+        mask = valid.bool().repeat_interleave(h // kv, dim=1)[:, :, None, :]
+        q4 = q[:, :, None, :]
+
+        def kernel():
+            return KLA.decode_attention(q, k, v, valid, scale)
+
+        rec = dict(
+            case=f"{name} {dtype}", shape=f"q ({b}, {h}, {dh}); k, v ({b}, "
+            f"{length}, {kv}, {dh}); {n_valid} valid (b, kv, l)",
+            max_abs_err=err, ms=device_ms(kernel, 20),
+            wall_ms=wall_ms(kernel, 20),
+            plain_ms=device_ms(lambda: KLA.decode_attention_plain(
+                q, k, v, valid, scale), 5),
+            library_ms=device_ms(lambda: F.scaled_dot_product_attention(
+                q4, ks, vs, attn_mask=mask, enable_gqa=True), 20),
+            bytes_bound_ms=bound_ms(n_bytes),
+            all_rows_bytes_bound_ms=bound_ms(
+                n_bytes + 2 * (valid.numel() - n_valid) * dh * elt),
+            ops_bound_ms=n_ops / F32_FLOPS * 1e3)
+        rec["bound_ms"] = max(rec["bytes_bound_ms"], rec["ops_bound_ms"])
+        rec["bound_by"] = ("bytes" if rec["bytes_bound_ms"]
+                           >= rec["ops_bound_ms"] else "operations")
+        log(f"lsm_kernel {json.dumps(rec)}")
+        cases.append(rec)
+        del q, k, v, ks, vs, valid, mask
+    main = dict(cases[0])
+    main.update(name="lsm_attention", route="cuda",
+                source="src/repro_torch/csrc/lsm_attention.cu",
+                replaces="src/repro/kernels/lsm_attention/lsm_attention.py:36",
+                cases=cases[1:])
+    return main
+
+
+def lm_serve_phase(device, seed: int, counters: dict):
+    """`generate(kind="lsm")` at full width: 2 requests x 24,576-token
+    prompts, 32 new tokens."""
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.serving import generate
+
+    cfg = lm_config()
+    t0 = time.perf_counter()
+    model = lm.init_params(cfg, seed, device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    gen = torch.Generator().manual_seed(seed + 6)
+    prompt = torch.randint(0, cfg.vocab, (2, SERVE_PROMPT), generator=gen)
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    stats = {}
+    toks, caches = generate(cfg, model, {"tokens": prompt}, SERVE_STEPS,
+                            "lsm", stats=stats)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    n_steps = SERVE_STEPS - 1
+    want = cfg.n_layers * n_steps
+    if launches["lsm_attention"] != want:
+        raise AssertionError(f"lsm_attention launched "
+                             f"{launches['lsm_attention']} times, expected "
+                             f"{want} (one per layer per step)")
+    if not stats["finite"]:
+        raise AssertionError("lm_serve: a logit was not finite")
+    n_blk = caches["n_blocks"].unique().tolist()
+    hot = caches["hot_len"].unique().tolist()
+    want_blk = (SERVE_PROMPT - 1) // cfg.lsm_block
+    want_hot = SERVE_PROMPT - want_blk * cfg.lsm_block + n_steps
+    if n_blk != [want_blk] or hot != [want_hot]:
+        raise AssertionError(f"lm_serve: n_blocks {n_blk} hot_len {hot}, "
+                             f"expected {want_blk} and {want_hot}")
+    if toks.shape != (2, SERVE_STEPS) or not (
+            (toks >= 0) & (toks < cfg.vocab)).all():
+        raise AssertionError(f"lm_serve: bad tokens {tuple(toks.shape)}")
+    rec = dict(
+        arch=cfg.name, dtype=cfg.dtype, batch=2, prompt=SERVE_PROMPT,
+        new_tokens=SERVE_STEPS, init_s=init_s, prefill_s=stats["prefill_s"],
+        decode_ms_per_step=stats["decode_s"] / n_steps * 1e3,
+        decode_tokens_per_s=2 * n_steps / stats["decode_s"],
+        n_blocks=want_blk, hot_len=want_hot, seals=stats["seals"],
+        max_memory_allocated=peak, launches=launches)
+    rec.update(decode_window(cfg, model, caches, toks[:, -1]))
+    return model, caches, rec
+
+
+def decode_window(cfg, model, caches, tok, n: int = 4):
+    """Device-busy share of `n` decode steps: host time unprofiled, then
+    the device time torch.profiler traces over the same number."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import lm
+
+    clock = Clock()
+    with clock:
+        for _ in range(n):
+            logits, caches2 = lm.decode_step(cfg, model, tok, caches, "lsm")
+            caches.update(caches2)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            logits, caches2 = lm.decode_step(cfg, model, tok, caches, "lsm")
+            caches.update(caches2)
+        torch.cuda.synchronize()
+    by_name = device_us_by_name(prof)
+    busy_ms = sum(by_name.values()) / 1e3
+    wall = clock.total * 1e3
+    return dict(window_steps=n, window_wall_ms=wall,
+                window_device_ms=busy_ms,
+                device_busy_share=busy_ms / wall if busy_ms else
+                "not measured",
+                window_top=[(k[:48], round(us / 1e3, 4))
+                            for k, us in by_name.most_common(6)])
+
+
+def lm_seal_phase(cfg, model, caches, seed: int):
+    """Fill the hot window with seeded K/V, seal, check the new block and
+    its summary, then decode one step and hold layer 0's kernel output
+    against the plain version."""
+    import torch
+    from repro_torch.kernels.lsm_attention import ops as KLA
+    from repro_torch.models import lm
+    from repro_torch.serving import seal_hot_block
+
+    w, mu = cfg.lsm_hot_window, cfg.lsm_block
+    hl = int(caches["hot_len"][0, 0])
+    gen = torch.Generator(caches["hot_k"].device).manual_seed(seed + 7)
+    for key in ("hot_k", "hot_v"):
+        t = caches[key]
+        t[:, :, hl:] = torch.randn(t[:, :, hl:].shape, generator=gen,
+                                   device=t.device).to(t.dtype)
+    caches["hot_len"].fill_(w)
+    old_k = caches["hot_k"][:, :, :mu].clone()
+    old_v = caches["hot_v"][:, :, :mu].clone()
+    n0 = caches["n_blocks"].clone()
+    caches = seal_hot_block(cfg, caches)
+    li = torch.arange(n0.shape[0], device=n0.device)[:, None]
+    bi = torch.arange(n0.shape[1], device=n0.device)[None, :]
+    slot = n0.long()
+    if not (torch.equal(caches["blk_k"][li, bi, slot], old_k)
+            and torch.equal(caches["blk_v"][li, bi, slot], old_v)):
+        raise AssertionError("lm_seal: the new block is not the old hot[:mu]")
+    summ = caches["summ"][li, bi, slot].float()
+    if not torch.allclose(summ, old_k.float().mean(dim=2), atol=1e-2):
+        raise AssertionError("lm_seal: summary is not the block's mean")
+    if not (torch.equal(caches["n_blocks"], n0 + 1)
+            and bool((caches["hot_len"] == w - mu).all())):
+        raise AssertionError("lm_seal: counters did not move")
+    seen = []
+    kernel = KLA.decode_attention
+
+    def first_call(q, k, v, valid, scale):
+        """Layer 0's call: put the wrapper back (its launch count lives
+        on it), run it, keep its inputs and output."""
+        KLA.decode_attention = kernel
+        out = kernel(q, k, v, valid, scale)
+        seen.append((q, k, v, valid, scale, out))
+        return out
+
+    KLA.decode_attention = first_call
+    try:
+        logits, caches = lm.decode_step(cfg, model, torch.zeros(
+            2, dtype=torch.int64, device=n0.device), caches, "lsm")
+    finally:
+        KLA.decode_attention = kernel
+    q, k, v, valid, scale, out = seen[0]
+    err = att_close(out, KLA.decode_attention_plain(q, k, v, valid, scale),
+                    cfg.dtype)
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("lm_seal: a logit after the seal is not finite")
+    return dict(n_blocks=int(caches["n_blocks"][0, 0]),
+                hot_len=int(caches["hot_len"][0, 0]),
+                layer0_kernel_max_abs_err=err,
+                layer0_valid_positions=int(valid.sum()))
+
+
+def lm_agree_phase(cfg, model, seed: int):
+    """2 x 8,192-token prompts: n_blocks = 7 <= topk, so every cold block
+    is selected and the tiered decode must equal the dense one. 8 steps,
+    teacher-forced by the dense tokens, both through the kernel."""
+    import torch
+    from repro_torch.kernels.lsm_attention import ops as KLA
+    from repro_torch.models import lm
+    from repro_torch.serving import grow_dense, lsm_from_dense
+
+    gen = torch.Generator().manual_seed(seed + 8)
+    prompt = torch.randint(0, cfg.vocab, (2, AGREE_PROMPT), generator=gen)
+    logits, dense = lm.prefill_step(cfg, model, {"tokens": prompt})
+    max_len = AGREE_PROMPT + 2 * AGREE_STEPS
+    tiered = lsm_from_dense(cfg, dense, max_len)
+    dense = grow_dense(cfg, dense, max_len)
+    n_blk = int(tiered["n_blocks"][0, 0])
+    if n_blk > cfg.lsm_topk:
+        raise AssertionError(f"lm_agree: {n_blk} blocks > topk")
+    floor = {k: t.clone() for k, t in dense.items()}
+    tok = logits.argmax(-1)
+    errs, floor_errs = [], []
+    for _ in range(AGREE_STEPS):
+        n0 = KLA.decode_attention.launches
+        ld, dense = lm.decode_step(cfg, model, tok, dense, "dense")
+        n1 = KLA.decode_attention.launches
+        lt, tiered = lm.decode_step(cfg, model, tok, tiered, "lsm")
+        if (n1 - n0, KLA.decode_attention.launches - n1) != (
+                cfg.n_layers, cfg.n_layers):
+            raise AssertionError("lm_agree: a decode path skipped the kernel")
+        ld, lt = ld.float(), lt.float()
+        if not bool(torch.isfinite(ld).all() & torch.isfinite(lt).all()):
+            raise AssertionError("lm_agree: a logit is not finite")
+        errs.append(float((lt - ld).norm() / ld.norm()))
+        # the noise floor: the same dense step with the plain version's
+        # f32 arithmetic in place of the kernel (same positions, another
+        # summation order, bf16 rounding through 32 layers)
+        kernel = KLA.decode_attention
+        KLA.decode_attention = KLA.decode_attention_plain
+        try:
+            lp, floor = lm.decode_step(cfg, model, tok, floor, "dense")
+        finally:
+            KLA.decode_attention = kernel
+        floor_errs.append(float((lp.float() - ld).norm() / ld.norm()))
+        tok = ld.argmax(-1)
+    if max(errs) > 2e-2:
+        raise AssertionError(f"lm_agree: tiered vs dense rel L2 {errs}")
+    return dict(prompt=AGREE_PROMPT, steps=AGREE_STEPS, n_blocks=n_blk,
+                max_rel_l2=max(errs), rel_l2=errs,
+                plain_vs_kernel_dense_rel_l2=floor_errs)
+
+
+def lm_small_phase(device):
+    """The smoke-size model (f32) through `generate` on the card and on
+    the CPU (plain versions): the same tokens and counters."""
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.serving import generate
+
+    cfg = lm_config().smoke()
+    model = lm.init_params(cfg, 0, device="cpu")
+    prompt = {"tokens": torch.randint(0, cfg.vocab, (2, 96),
+                                      generator=torch.Generator()
+                                      .manual_seed(1))}
+    out = {}
+    for kind in ("dense", "lsm"):
+        want, wc = generate(cfg, model, prompt, 64, kind)
+        got, gc = generate(cfg, model.to(device), prompt, 64, kind)
+        model = model.cpu()
+        if not torch.equal(got.cpu(), want):
+            raise AssertionError(f"lm_small {kind}: card and CPU tokens "
+                                 "differ")
+        for key in ("pos", "hot_len", "n_blocks"):
+            if key in wc and not torch.equal(gc[key].cpu(), wc[key]):
+                raise AssertionError(f"lm_small {kind}: {key} differs")
+        out[kind] = "tokens equal"
+    return out
+
+
+# --------------------------------------------------------------------------
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -621,6 +971,7 @@ def main() -> int:
     from repro_torch.kernels import fence_lookup as KFL
     from repro_torch.kernels import heap_merge as KHM
     from repro_torch.kernels import range_merge as KRM
+    from repro_torch.kernels.lsm_attention import ops as KLA
 
     device = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
@@ -637,9 +988,12 @@ def main() -> int:
     log(f"build: {len(_build.sources())} kernels with nvcc "
         f"{' '.join(_build.NVCC_FLAGS[:2])} in {build_s:.1f} s")
     for src, text in sorted(_build.build_log().items()):
-        for line in text.splitlines():
-            if "registers" in line:
-                log(f"  ptxas {src}: {line.strip()}")
+        regs = [int(w) for w in re.findall(r"Used (\d+) registers", text)]
+        spills = sum(int(w) for w in re.findall(r"(\d+) bytes spill stores",
+                                                text))
+        if regs:
+            log(f"  ptxas {src}: {len(regs)} kernel(s), at most {max(regs)} "
+                f"registers, {spills} bytes of spill stores")
 
     rng = np.random.default_rng(args.seed)
     kernels = kernel_phase(paper_params(merge_budget=1, range_cand=512),
@@ -648,7 +1002,8 @@ def main() -> int:
     counters = {"bloom_probe": KBP.bloom_probe_many,
                 "fence_lookup": KFL.fence_lookup_many,
                 "heap_merge": KHM.merge_round,
-                "range_merge": KRM.merge_round}
+                "range_merge": KRM.merge_round,
+                "lsm_attention": KLA.decode_attention}
     for fn in counters.values():
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -657,7 +1012,8 @@ def main() -> int:
     main["max_memory_allocated"] = torch.cuda.max_memory_allocated()
     log(f"main [{card}]: " + json.dumps(main))
     log(f"main launches: {launches}")
-    missing = [k for k, n in launches.items() if n == 0]
+    missing = [k for k, n in launches.items()
+               if n == 0 and k != "lsm_attention"]
     if missing:
         raise AssertionError(f"main path never launched: {missing}")
     for flow, rec in profile_phase(eng, args.seed).items():
@@ -666,10 +1022,25 @@ def main() -> int:
 
     cascade = cascade_phase(device, args.seed)
     log(f"cascade [{card}]: " + json.dumps(cascade))
+    torch.cuda.empty_cache()
+
+    lsm_rec = lsm_kernel_phase(device, args.seed)
+    model, caches, serve = lm_serve_phase(device, args.seed, counters)
+    log(f"lm_serve [{card}]: " + json.dumps(serve))
+    seal = lm_seal_phase(lm_config(), model, caches, args.seed)
+    log(f"lm_seal [{card}]: " + json.dumps(seal))
+    del caches
+    torch.cuda.empty_cache()
+    agree = lm_agree_phase(lm_config(), model, args.seed)
+    log(f"lm_agree [{card}]: " + json.dumps(agree))
+    del model
+    log(f"lm_small: {json.dumps(lm_small_phase(device))}")
 
     for rec in kernels:
         rec["launches"] = launches[rec["name"]]
         rec["card"] = card
+    lsm_rec.update(launches=serve["launches"]["lsm_attention"], card=card)
+    kernels.append(lsm_rec)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}))

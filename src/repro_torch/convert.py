@@ -7,6 +7,10 @@ written in. The port's `SLSMState` keeps the same field order, so the
 leaf lists line up one to one. Blooms are uint32 in the reference and
 int32 words holding the same bits here (trap T6).
 
+The LM's parameters and decode caches travel as the reference's nested
+dicts of numpy arrays (`lm_params_from_numpy`, `caches_from_numpy` and
+their inverses).
+
 Nothing here imports the reference: parameters travel as the dict of
 `dataclasses.asdict`, state as numpy arrays.
 """
@@ -68,3 +72,124 @@ def state_to_leaves(state: SLSMState) -> list[np.ndarray]:
     for lv in state.levels:
         out += [t.cpu().numpy() for t in lv]
     return out
+
+
+# --------------------------------------------------------------------------
+# LM parameters and decode caches
+# --------------------------------------------------------------------------
+#
+# The reference's LM parameters are a nested dict of arrays with layer
+# weights stacked on a leading L axis, and dense weights stored (d_in,
+# d_out) for `x @ W`. The port's `LM` keeps one module per layer and
+# `nn.Linear` weights (d_out, d_in), so every projection is transposed
+# on the way in and out. Norm weights are `w`, q/k/v biases `bq`/`bk`/
+# `bv` in the reference and the Linear's `bias` here.
+
+def _from_numpy(a, dtype=None, device="cpu") -> torch.Tensor:
+    a = np.array(a)           # a copy: the port writes caches in place
+    if a.dtype.name == "bfloat16":          # ml_dtypes' bfloat16
+        t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return t.to(device=device, dtype=dtype or t.dtype)
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def _lm_source(name: str):
+    """Port parameter name -> (reference path, layer index or None,
+    transposed)."""
+    parts = name.split(".")
+    if parts[0] == "layers":
+        i, sub, leaf = int(parts[1]), parts[2:-1], parts[-1]
+        if leaf == "bias":                        # attn.wq.bias -> attn.bq
+            return ("layers", sub[0], "b" + sub[1][1:]), i, False
+        if leaf == "weight":
+            return ("layers", *sub), i, True
+        return ("layers", *sub, leaf), i, False
+    if parts[-1] == "weight":                     # lm_head
+        return tuple(parts[:-1]), None, True
+    return tuple(parts), None, False
+
+
+def _flatten(tree, prefix=()):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flatten(v, prefix + (k,)))
+        return out
+    return {prefix: tree}
+
+
+def lm_params_from_numpy(cfg, tree: dict, device=None):
+    """The port's `LM` from the reference's parameter tree (numpy leaves,
+    `layers` stacked on L). Raises on a missing or unused leaf and on any
+    shape that does not match after transposition."""
+    from repro_torch.engine.engine import resolve_device
+    from repro_torch.models.lm import LM
+
+    flat = _flatten(tree)
+    used = set()
+    model = LM(cfg, resolve_device(device))
+    with torch.no_grad():
+        for name, t in model.named_parameters():
+            path, layer, transposed = _lm_source(name)
+            if path not in flat:
+                raise KeyError(f"{name}: no reference leaf {'/'.join(path)}")
+            used.add(path)
+            a = np.asarray(flat[path])
+            if layer is not None:
+                a = a[layer]
+            if transposed:
+                a = a.T
+            if tuple(a.shape) != tuple(t.shape):
+                raise ValueError(f"{name}: reference leaf {'/'.join(path)} "
+                                 f"gives {tuple(a.shape)}, expected "
+                                 f"{tuple(t.shape)}")
+            t.copy_(_from_numpy(a, t.dtype, t.device))
+    extra = sorted("/".join(p) for p in set(flat) - used)
+    if extra:
+        raise KeyError(f"reference leaves with no port parameter: {extra}")
+    return model.requires_grad_(False)
+
+
+def lm_params_to_numpy(model) -> dict:
+    """The reference's parameter tree (numpy, layers stacked) from an
+    `LM`."""
+    stacked: dict = {}
+    tree: dict = {}
+    for name, t in model.named_parameters():
+        path, layer, transposed = _lm_source(name)
+        a = _to_numpy(t.T if transposed else t)
+        if layer is None:
+            node = tree
+            for k in path[:-1]:
+                node = node.setdefault(k, {})
+            node[path[-1]] = a
+        else:
+            stacked.setdefault(path, []).append(a)
+    for path, arrays in stacked.items():
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = np.stack(arrays)
+    return tree
+
+
+def caches_from_numpy(tree: dict, device=None) -> dict:
+    """Decode caches (dense or lsm dict of numpy leaves) as tensors;
+    dtypes kept (counters int32, K/V in the model dtype)."""
+    from repro_torch.engine.engine import resolve_device
+    device = resolve_device(device)
+    return {k: _from_numpy(v, device=device) for k, v in tree.items()}
+
+
+def caches_to_numpy(caches: dict) -> dict:
+    """Decode caches as numpy leaves, in the reference's layout."""
+    return {k: _to_numpy(v) for k, v in caches.items()}

@@ -9,6 +9,8 @@ tensors:
   fence_lookup — fence-pointer page search over a level's D runs (2.4)
   heap_merge   — one round of the k-way run-merge tournament (2.5)
   range_merge  — one round of the range scan's segment merge-dedup (2.9)
+  lsm_attention — single-token GQA decode attention over the sLSM-tiered
+                 (or dense) KV cache, for the LM serving path
 
 `_build` compiles the sources with nvcc at first use.
 """

@@ -99,14 +99,17 @@ def lib(name: str) -> ctypes.CDLL:
     return _LIBS[name]
 
 
-def bind(name: str, symbol: str, n_ptrs: int, n_ints: int):
+def bind(name: str, symbol: str, n_ptrs: int, n_ints: int,
+         n_floats: int = 0):
     """The C entry `symbol` of `csrc/<name>.cu`, typed as `n_ptrs` device
-    pointers, then `n_ints` 64-bit integers, then the stream."""
+    pointers, then `n_ints` 64-bit integers, then `n_floats` floats,
+    then the stream."""
     fn = _BOUND.get((name, symbol))
     if fn is None:
         fn = getattr(lib(name), symbol)
         fn.argtypes = ([ctypes.c_void_p] * n_ptrs
-                       + [ctypes.c_longlong] * n_ints + [ctypes.c_void_p])
+                       + [ctypes.c_longlong] * n_ints
+                       + [ctypes.c_float] * n_floats + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _BOUND[(name, symbol)] = fn
     return fn

@@ -17,6 +17,7 @@ from repro_torch.kernels import bloom_probe as KBP  # noqa: E402
 from repro_torch.kernels import fence_lookup as KFL  # noqa: E402
 from repro_torch.kernels import heap_merge as KHM  # noqa: E402
 from repro_torch.kernels import range_merge as KRM  # noqa: E402
+from repro_torch.kernels.lsm_attention import ops as KLA  # noqa: E402
 
 I32 = np.iinfo(np.int32)
 
@@ -132,3 +133,61 @@ def test_range_merge_kernel_matches_plain(cuda, n_seg):
     want = KRM.range_merge(*(_t(a) for a in (K, V, W, S, off)), True)
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
+
+
+# tolerances of the kernel against its plain version: f32 sums in another
+# order; bf16 output rounding (one ulp at |x| ~ 1 is 7.8e-3)
+ATT_TOL = {torch.float32: dict(atol=1e-5, rtol=1e-4),
+           torch.bfloat16: dict(atol=1e-2, rtol=1e-2)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("group,dh,length", [
+    (g, d, 512) for g in (1, 2, 3, 4) for d in (16, 128, 256)]
+    + [(3, 128, n) for n in (1, 511, 513, 20480)] + [(8, 64, 700)])
+def test_lsm_attention_kernel_matches_plain(cuda, group, dh, length, dtype):
+    """Ragged validity, one (batch, kv-head) row with no valid position."""
+    gen = torch.Generator(cuda).manual_seed(group * 1000 + dh + length)
+    b, kv = 2, 2
+    h = group * kv
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda).to(dtype)
+               for shape in ((b, h, dh), (b, length, kv, dh),
+                             (b, length, kv, dh)))
+    valid = (torch.rand((b, kv, length), generator=gen, device=cuda)
+             < 0.7).to(torch.int8)
+    valid[1, 0] = 0
+    before = KLA.decode_attention.launches
+    got = KLA.decode_attention(q, k, v, valid, dh ** -0.5)
+    torch.cuda.synchronize()
+    assert KLA.decode_attention.launches == before + 1
+    want = KLA.decode_attention_plain(q, k, v, valid, dh ** -0.5)
+    assert got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), **ATT_TOL[dtype])
+    assert not got[1, :group].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["dense", "lsm"])
+def test_lm_generate_on_card_matches_cpu(cuda, kind):
+    """The smoke-size model through `generate` on the card (kernel) and on
+    the CPU (plain version), f32: the same tokens, counters and caches."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.serving import generate
+    cfg = get_config("phi4-mini-3.8b").smoke()
+    model = lm.init_params(cfg, 0, device="cpu")
+    prompt = {"tokens": torch.randint(0, cfg.vocab, (2, 96),
+                                      generator=torch.Generator().manual_seed(
+                                          1))}
+    toks, caches = generate(cfg, model, prompt, 64, kind)
+    before = KLA.decode_attention.launches
+    toks_c, caches_c = generate(cfg, model.to(cuda), prompt, 64, kind)
+    assert KLA.decode_attention.launches - before == 63 * cfg.n_layers
+    assert torch.equal(toks_c.cpu(), toks)
+    for key, want in caches.items():
+        if want.dtype == torch.int32:
+            assert torch.equal(caches_c[key].cpu(), want)
+        else:
+            torch.testing.assert_close(caches_c[key].cpu(), want, atol=1e-4,
+                                       rtol=1e-4)
