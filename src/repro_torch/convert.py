@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.params import SLSMParams, TuningPolicy
+from repro_torch.device import resolve_device
 from repro_torch.engine.levels import LevelState
 from repro_torch.engine.memtable import SLSMState
 
@@ -131,7 +132,6 @@ def lm_params_from_numpy(cfg, tree: dict, device=None):
     """The port's `LM` from the reference's parameter tree (numpy leaves,
     `layers` stacked on L). Raises on a missing or unused leaf and on any
     shape that does not match after transposition."""
-    from repro_torch.engine.engine import resolve_device
     from repro_torch.models.lm import LM
 
     flat = _flatten(tree)
@@ -185,7 +185,6 @@ def lm_params_to_numpy(model) -> dict:
 def caches_from_numpy(tree: dict, device=None) -> dict:
     """Decode caches (dense or lsm dict of numpy leaves) as tensors;
     dtypes kept (counters int32, K/V in the model dtype)."""
-    from repro_torch.engine.engine import resolve_device
     device = resolve_device(device)
     return {k: _from_numpy(v, device=device) for k, v in tree.items()}
 

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.params import KEY_EMPTY, SLSMParams
+from repro_torch.device import resolve_device
 from repro_torch.engine.batching import (bucket_pow2, pad_to, pad_windows,
                                          range_many_host)
 from repro_torch.engine.compaction import CompactionPolicy, TieringPolicy
@@ -41,18 +42,6 @@ def reject_reserved(keys: np.ndarray, vals: np.ndarray | None = None,
             f"{op}: key {int(KEY_EMPTY)} (KEY_EMPTY/INT32_MAX) is reserved "
             "as the engine's empty-slot sentinel and cannot be stored or "
             "queried")
-
-
-def resolve_device(device) -> torch.device:
-    """`None` means the CUDA card; without one, raise — the CPU is used
-    only when the caller asks for it."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: the engine runs on the card; pass "
-                "device='cpu' to run its plain PyTorch path on the CPU")
-        device = "cuda"
-    return torch.device(device)
 
 
 class SLSM:

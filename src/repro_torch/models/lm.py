@@ -17,7 +17,7 @@ import math
 import torch
 from torch import nn
 
-from repro_torch.engine.engine import resolve_device
+from repro_torch.device import resolve_device
 from repro_torch.models import attention as ATT
 from repro_torch.models.config import check_supported
 from repro_torch.models.layers import MLP, Norm, apply_norm

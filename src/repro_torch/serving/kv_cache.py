@@ -92,7 +92,11 @@ def grow_dense(cfg, caches: dict, max_len: int) -> dict:
     return grown
 
 
-def _now(device) -> float:
+def _now(device, stats) -> float | None:
+    """The host clock after the device has caught up; read only when the
+    caller asked for `stats`, so an unmeasured run adds no sync."""
+    if stats is None:
+        return None
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     return time.perf_counter()
@@ -110,13 +114,13 @@ def generate(cfg, model, prompt_batch: dict, steps: int,
     synchronize, `seals`, and `finite`: whether every logit was finite."""
     b, s = torch.as_tensor(prompt_batch["tokens"]).shape
     max_len = max_len or (s + steps + 8)
-    t0 = _now(model.device)
+    t0 = _now(model.device, stats)
     logits, caches = lm.prefill_step(cfg, model, prompt_batch)
     if kind == "lsm":
         caches = lsm_from_dense(cfg, caches, max_len)
     else:
         caches = grow_dense(cfg, caches, max_len)
-    t1 = _now(model.device)
+    t1 = _now(model.device, stats)
     out_tokens = [logits.argmax(-1)]
     finite = torch.isfinite(logits).all()
     seals = 0
@@ -132,6 +136,7 @@ def generate(cfg, model, prompt_batch: dict, steps: int,
             caches = seal_hot_block(cfg, caches)
             seals += 1
     if stats is not None:
-        stats.update(prefill_s=t1 - t0, decode_s=_now(model.device) - t1,
+        stats.update(prefill_s=t1 - t0,
+                     decode_s=_now(model.device, stats) - t1,
                      seals=seals, finite=bool(finite))
     return torch.stack(out_tokens, dim=1), caches

@@ -3,9 +3,10 @@
 Every check runs the reference (JAX on the CPU, Pallas in interpret
 mode) and the port (torch on the CPU, where `decode_attention` runs its
 plain version) on the same numpy inputs, at `smoke()` size in f32.
-Tolerances: f32 kernel math atol 1e-5 (rtol 1e-4), bf16 atol = rtol =
-1e-2 (one bf16 ulp at |x| ~ 1 is 7.8e-3); model logits rtol = atol =
-2e-3, the reference suite's own (`tests/test_models.py`); caches 1e-4.
+Tolerances: f32 kernel math atol 1e-5 (rtol 1e-4); bf16 one ulp, rtol
+8e-3 (2**-7 relative) with atol 1e-4, since both sides sum in f32 and
+round once; model logits rtol = atol = 2e-3, the reference suite's own
+(`tests/test_models.py`); caches 1e-4.
 The CUDA kernel itself is held against the plain version on the card
 in `test_torch_gpu.py`.
 """
@@ -39,7 +40,7 @@ from repro_torch.serving import kv_cache as TKV  # noqa: E402
 ARCHS = all_arch_ids()
 PROMPT, STEPS = 96, 64          # smoke: W=64, mu=16, topk=2 -> seals
 TOL = {"float32": dict(atol=1e-5, rtol=1e-4),
-       "bfloat16": dict(atol=1e-2, rtol=1e-2)}
+       "bfloat16": dict(atol=1e-4, rtol=8e-3)}
 LOGIT_TOL = dict(atol=2e-3, rtol=2e-3)
 
 _ref_decode = jax.jit(RLM.decode_step, static_argnums=(0, 4))
