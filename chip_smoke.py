@@ -15,23 +15,35 @@ Phases, in order; any failure raises and exits non-zero:
              library call that computes the same function: device time
              per call from torch.profiler after warm-up, and the
              wrapper's wall time between CUDA events beside it. Bounds
-             count each byte the function needs once.
+             count each byte the function needs once. heap_merge runs at
+             both shapes it launches at (the buffer flush, 50 x 800, and
+             the level spill, 20 x 40,448) and at a level-1 spill
+             (20 x 808,960, its samples searched in place): the k-way
+             kernel beside the tournament of round launches it replaced,
+             each bitwise equal to the plain version.
   main     — the engine at the paper's Table 1 baseline
              (`paper_params(merge_budget=1, range_cand=512)`) on the card:
              8M writes and 800K interleaved deletes, 1M lookups, 2048
              range scans, 2048 aggregates, every answer checked against a
-             numpy oracle; all four kernels must have launched.
+             numpy oracle; all four kernels must have launched; the
+             heap_merge launches counted by merge shape (flush, spill).
   profile  — a short window of each main-path flow under torch.profiler:
              device time by kernel and the device-busy share.
   cascade  — the scaled geometry through deepest-level compactions with
              annihilation, checked against the dict oracle.
   lsm_kernel — the attention kernel against its plain version at the LM
-             path's shapes (tiered [hot | top-k blocks] bf16 and f32, the
-             dense cache of lm_agree; bf16 rtol 8e-3, one ulp, and atol
-             1e-3 of the largest output; f32 atol 1e-5 rtol 1e-4), and
-             the kernel skipping every 32nd position must fail that
-             check; timed beside its plain version and
-             `F.scaled_dot_product_attention` on the same inputs.
+             path's shapes: the tiered cache read in place (bf16 and f32;
+             every row it must not read is NaN), the dense cache of
+             lm_agree by lengths, and the Pallas contract (K/V and a
+             bitmap) on the gathered tiered input; bf16 rtol 8e-3, one
+             ulp, and atol 1e-3 of the largest output; f32 atol 1e-5 rtol
+             1e-4. Planted faults must fail that check: the plain
+             version with every 32nd position dropped, and for the
+             tiered cases the kernel with the top selected block marked
+             not ok. Timed beside its plain version,
+             `F.scaled_dot_product_attention` on the (gathered) K/V and,
+             tiered, the path it replaces (gather, concatenation, bitmap,
+             kernel).
   lm_serve — Phi-4-mini 3.8B at full width (bf16, seeded random
              weights): `generate(kind="lsm")` for 2 x 24,576-token
              prompts and 32 new tokens; the kernel launched once per
@@ -41,6 +53,8 @@ Phases, in order; any failure raises and exits non-zero:
   lm_seal  — on that cache: fill the hot window, seal, check the new
              block, its summary and the counters, and hold layer 0's
              kernel output of the next step against the plain version.
+             (The tiered and dense decode paths launch the kernel with no
+             gather, concatenation or bitmap in front of it.)
   lm_agree — 2 x 8,192-token prompts (7 cold blocks <= topk 16): tiered
              and dense decode, teacher-forced, agree to a relative L2 of
              2e-2 in the logits at every step, and layer 0's attention
@@ -121,15 +135,16 @@ def device_ms(fn, iters: int, warmup: int = 2) -> float:
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(device_us_by_name(prof).values())
-    if us <= 0:
-        raise AssertionError("the profiler traced no device time")
-    return us / 1e3 / iters
+    for _ in range(3):      # the tracer now and then delivers no events
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(device_us_by_name(prof).values())
+        if us > 0:
+            return us / 1e3 / iters
+    raise AssertionError("the profiler traced no device time")
 
 
 def search_reads(rows, base, n: int, x, right: bool):
@@ -286,34 +301,67 @@ def kernel_phase(p, device, rng):
                           + (fence_words + key_words) * 4),
         library_ms=device_ms(lambda: torch.searchsorted(keys1_t, qs_d), 20)))
 
-    # -- heap_merge: the level-0 -> level-1 spill, D runs of level_cap(0)
-    cap0 = p.level_cap(0)
-    c0 = np.full(p.D, p.runs_merged * p.Rn, np.int64)
-    k0 = sorted_runs(rng, p.D, cap0, c0)
-    real = k0 != KEY_EMPTY
-    seqs = np.where(real, rng.permutation(k0.size).reshape(k0.shape), 0)
-    wts = np.where(real, rng.choice([-1, 1], k0.shape), 0)
-    lanes = [dev(a.reshape(-1).astype(np.int32)) for a in (k0, wts, seqs)]
-    ix = torch.arange(k0.size, dtype=torch.int32, device=device)
-    n = k0.size
+    # -- heap_merge: where it launches on the main path — the buffer
+    # flush (runs_merged memory runs of Rn lanes) and the level-0 ->
+    # level-1 spill (D runs of level_cap(0)) — and at the level-1 ->
+    # level-2 spill of a deployment that fills level 1 (D runs of
+    # level_cap(1), whose samples miss shared memory); the k-way kernel
+    # (two launches a merge) beside the tournament of round launches it
+    # replaces, each against the plain version on all four lanes
+    cases = []
+    for shape_name, n_runs, cap, fill in (
+            ("spill", p.D, p.level_cap(0), p.runs_merged * p.Rn),
+            ("flush", p.runs_merged_eff, p.Rn, p.Rn),
+            ("deep spill", p.D, p.level_cap(1),
+             p.D * p.runs_merged * p.Rn)):
+        cnt = np.full(n_runs, fill, np.int64)
+        cnt[n_runs // 2:] = fill - fill // 9     # partly filled runs too
+        kr = sorted_runs(rng, n_runs, cap, cnt)
+        real = kr != KEY_EMPTY
+        seqs = np.where(real, rng.permutation(kr.size).reshape(kr.shape), 0)
+        wts = np.where(real, rng.choice([-1, 1], kr.shape), 0)
+        lanes = [dev(a.reshape(-1).astype(np.int32)) for a in (kr, wts, seqs)]
+        ix = torch.arange(kr.size, dtype=torch.int32, device=device)
+        n = kr.size
 
-    def heap(round_fn=None):
-        return KHM.ops.tournament(*lanes, ix, cap0, p.D, round_fn)
+        def kway(lanes=lanes, ix=ix, n_runs=n_runs):
+            return KHM.kway_merge(*lanes, ix, n_runs)
 
-    got = heap()
-    torch.cuda.synchronize()
-    want = heap(KHM.merge_round_plain)
-    comp = RU.composite(lanes[0], lanes[2])
+        def rounds(lanes=lanes, ix=ix, n_runs=n_runs, cap=cap):
+            return KHM.ops.tournament(*lanes, ix, cap, n_runs)
+
+        want = KHM.kway_merge_plain(*lanes, ix, n_runs)
+        got = kway()
+        old = rounds()
+        torch.cuda.synchronize()
+        comp = RU.composite(lanes[0], lanes[2])
+        cases.append(dict(
+            case=shape_name,
+            shape=f"{n_runs} runs x {cap} = {n} lanes",
+            samples_in_shared=KHM.ops.kway_geometry(n_runs, cap)[-1],
+            max_abs_err=max_abs_err(got, want),
+            rounds_max_abs_err=max_abs_err(old, want),
+            ms=device_ms(kway, 20), wall_ms=wall_ms(kway, 20),
+            rounds_ms=device_ms(rounds, 10),
+            rounds_launches=math.ceil(math.log2(n_runs)),
+            plain_ms=device_ms(lambda lanes=lanes, ix=ix, n_runs=n_runs:
+                               KHM.kway_merge_plain(*lanes, ix, n_runs), 5),
+            bound_ms=bound_ms(n * 16 * 2),
+            library_ms=device_ms(lambda comp=comp: torch.sort(
+                comp, stable=True), 10)))
+        log(f"heap_merge {json.dumps(cases[-1])}")
+        for key, what in (("max_abs_err", "k-way kernel"),
+                          ("rounds_max_abs_err", "rounds")):
+            if cases[-1][key]:
+                raise AssertionError(f"heap_merge {what} ({shape_name}) "
+                                     "differs from the plain k-way order")
+        del lanes, ix, want, got, old, comp
+        torch.cuda.empty_cache()
+    spill = cases[0]
     out.append(dict(
-        name="heap_merge", source="src/repro_torch/csrc/heap_merge.cu",
+        spill, name="heap_merge", source="src/repro_torch/csrc/heap_merge.cu",
         replaces="src/repro/kernels/heap_merge/heap_merge.py:48",
-        shape=f"{p.D} runs x {cap0} = {n} lanes, "
-              f"{math.ceil(math.log2(p.D))} rounds",
-        max_abs_err=max_abs_err(got, want),
-        ms=device_ms(heap, 10), wall_ms=wall_ms(heap, 10),
-        plain_ms=device_ms(lambda: heap(KHM.merge_round_plain), 3),
-        bound_ms=bound_ms(n * 16 * 2),
-        library_ms=device_ms(lambda: torch.sort(comp, stable=True), 10)))
+        cases=cases[1:]))
 
     # -- range_merge: Q scans x range_cand lanes of P = 1 + R + 2D parts
     q_s, c_n, n_seg = SCAN_BATCH, p.range_cand_eff(2), 1 + p.R + 2 * p.D
@@ -531,6 +579,33 @@ def main_phase(device, seed: int, n_writes: int):
         stats={k: int(v) for k, v in eng.stats.items()})
 
 
+class merge_tally:
+    """Within the block, tally every k-way merge the engine runs by its
+    shape (runs x lanes) and the heap_merge launches it made: the flushes
+    and the spills of the main path."""
+
+    def __init__(self, into: dict, counter):
+        from repro_torch.engine import backend
+        self.backend, self.into, self.counter = backend, into, counter
+
+    def __enter__(self):
+        real = self.real = self.backend.merge_runs
+
+        def merge_runs(keys2d, *rest):
+            n0 = self.counter.launches
+            out = real(keys2d, *rest)
+            rec = self.into.setdefault("x".join(map(str, keys2d.shape)),
+                                       dict(merges=0, launches=0))
+            rec["merges"] += 1
+            rec["launches"] += self.counter.launches - n0
+            return out
+
+        self.backend.merge_runs = merge_runs
+
+    def __exit__(self, *exc):
+        self.backend.merge_runs = self.real
+
+
 def profile_phase(eng, seed: int):
     """Where the time goes, per flow of the main path: a short window of
     each flow run once unprofiled (host wall time) and once under
@@ -658,11 +733,49 @@ def att_close(got, want, dtype: str) -> float:
     return err
 
 
+def tiered_case(device, gen, dt, w, mu, topk, kv, dh, b, h):
+    """A serve-shaped tiered cache: 23 sealed blocks (the block axis
+    padded to 32), hot_len 1,056 and 2,119, row 1 missing half its
+    selected blocks for half its kv heads. Every row the kernel must not
+    read is NaN: hot rows at or past hot_len, and each (block, kv head)
+    that is not a selected `ok` block."""
+    import torch
+    from repro_torch.kernels.lsm_attention import ops as KLA
+    nb, n_blocks = 32, (SERVE_PROMPT - 1) // mu
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=device).to(dt)
+
+    q, hk, hv = rnd(b, h, dh), rnd(b, w, kv, dh), rnd(b, w, kv, dh)
+    bk, bv = rnd(b, nb, mu, kv, dh), rnd(b, nb, mu, kv, dh)
+    summ = bk.float().mean(dim=2).to(dt)
+    hot_len = torch.tensor([SERVE_HOT, 2 * SERVE_HOT + 7], dtype=torch.int32,
+                           device=device)
+    ids, ok = KLA.select_blocks(q, summ, torch.full((b,), n_blocks,
+                                                    device=device), topk)
+    ok[1, :kv // 2, 12:] = False
+    read = torch.zeros(b, nb, kv, dtype=torch.bool, device=device)
+    read[torch.arange(b, device=device)[:, None, None], ids,
+         torch.arange(kv, device=device)[None, :, None]] = ok
+    gone = ~read[:, :, None, :, None].expand_as(bk)
+    for t in (bk, bv):
+        t[gone] = float("nan")
+    for r in range(b):
+        for t in (hk, hv):
+            t[r, int(hot_len[r]):] = float("nan")
+    n_valid = int(hot_len.sum()) * kv + int(ok.sum()) * mu
+    return (q, hk, hv, hot_len, bk, bv, ids, ok), n_valid
+
+
 def lsm_kernel_phase(device, seed: int):
     """The attention kernel against its plain version at the LM path's
-    shapes: tiered [hot | top-k blocks] (bf16, and once in f32) and the
-    dense cache of the agreement phase; device times of kernel, plain
-    version and `F.scaled_dot_product_attention` on the same inputs."""
+    shapes — the tiered cache read in place (bf16, and once in f32), the
+    dense cache of the agreement phase by lengths, and the Pallas
+    contract (K/V and a bitmap) on the gathered tiered input — each with
+    its planted faults; device times of kernel, plain version,
+    `F.scaled_dot_product_attention` on the (gathered) K/V and, for the
+    tiered cases, the path it replaces (gather, concatenate, bitmap,
+    kernel)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.lsm_attention import ops as KLA
@@ -671,81 +784,126 @@ def lsm_kernel_phase(device, seed: int):
     b, h, kv, dh = 2, cfg.n_heads, cfg.n_kv, cfg.hd
     w, mu, topk = cfg.lsm_hot_window, cfg.lsm_block, cfg.lsm_topk
     gen = torch.Generator(device).manual_seed(seed + 5)
+    scale = dh ** -0.5
     cases = []
-    for name, dtype, length in (
-            ("tiered", "bfloat16", w + topk * mu),
-            ("dense", "bfloat16", AGREE_PROMPT + 2 * AGREE_STEPS),
-            ("tiered", "float32", w + topk * mu)):
+    for name, dtype in (("tiered", "bfloat16"), ("dense", "bfloat16"),
+                        ("bitmap", "bfloat16"), ("tiered", "float32")):
         dt = getattr(torch, dtype)
-        q, k, v = (torch.randn(s, generator=gen, device=device).to(dt)
-                   for s in ((b, h, dh), (b, length, kv, dh),
-                             (b, length, kv, dh)))
-        pos = torch.arange(length, device=device)
-        if name == "tiered":      # serve's hot fill; row 1 misses blocks
-            hot = torch.tensor([[SERVE_HOT], [2 * SERVE_HOT + 7]],
-                               device=device)
-            valid = ((pos < hot) | (pos >= w))[:, None, :].expand(b, kv, -1)
-            valid = valid.clone()
-            valid[1, :kv // 2, w + 12 * mu:] = False
+        faults = {}
+        if name == "dense":
+            length = AGREE_PROMPT + 2 * AGREE_STEPS
+            q, k, v = (torch.randn(s, generator=gen, device=device).to(dt)
+                       for s in ((b, h, dh), (b, length, kv, dh),
+                                 (b, length, kv, dh)))
+            lens = torch.tensor([AGREE_PROMPT + 1, AGREE_PROMPT + 5],
+                                dtype=torch.int32, device=device)
+            for r in range(b):
+                k[r, int(lens[r]):] = float("nan")
+                v[r, int(lens[r]):] = float("nan")
+            valid = (torch.arange(length, device=device)[None, :]
+                     < lens[:, None])[:, None, :].expand(b, kv, -1)
+            valid = valid.to(torch.int8).contiguous()
+            n_valid = int(valid.sum())
+            shape = (f"q ({b}, {h}, {dh}); k, v ({b}, {length}, {kv}, {dh}); "
+                     f"lengths {lens.tolist()}")
+
+            def kernel():
+                return KLA.decode_attention_op(q, k, v, lens, scale)
+
+            def plain():
+                return KLA.decode_attention_plain(q, k, v, valid, scale)
+            extra = 2 * b * 4                        # q/out below; lengths
+            ks, vs = k, v
         else:
-            lens = torch.tensor([[AGREE_PROMPT + 1], [AGREE_PROMPT + 5]],
-                                device=device)
-            valid = (pos < lens)[:, None, :].expand(b, kv, -1).clone()
-        valid = valid.to(torch.int8).contiguous()
-        scale = dh ** -0.5
-        got = KLA.decode_attention(q, k, v, valid, scale)
+            args, n_valid = tiered_case(device, gen, dt, w, mu, topk, kv,
+                                        dh, b, h)
+            q, hot_len, ids, ok = args[0], args[3], args[6], args[7]
+            k, v, valid = KLA.tiered_inputs(*args[1:8])
+            ks, vs = k, v
+            length = k.shape[1]
+            shape = (f"q ({b}, {h}, {dh}); hot ({b}, {w}, {kv}, {dh}), "
+                     f"hot_len {hot_len.tolist()}; blocks ({b}, "
+                     f"{args[4].shape[1]}, {mu}, {kv}, {dh}), top {topk}")
+
+            def plain():
+                return KLA.lsm_decode_attention_plain(*args, scale)
+            if name == "tiered":
+                def kernel():
+                    return KLA.lsm_decode_attention(*args, scale)
+                extra = ids.numel() * 8 + ok.numel() + b * 4
+
+                def block_off():
+                    ok2 = ok.clone()
+                    ok2[:, :, 0] = False
+                    return KLA.lsm_decode_attention(*args[:7], ok2, scale)
+                faults["top_block_not_ok"] = block_off
+            else:
+                shape = (f"q ({b}, {h}, {dh}); gathered k, v ({b}, {length}"
+                         f", {kv}, {dh}) and bitmap")
+
+                def kernel():
+                    return KLA.decode_attention(q, k, v, valid, scale)
+                extra = valid.numel()
+        got = kernel()
         torch.cuda.synchronize()
-        want = KLA.decode_attention_plain(q, k, v, valid, scale)
+        want = plain()
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"lsm_kernel {name} {dtype}: the kernel "
+                                 "read a row it must not (non-finite out)")
         err = att_close(got, want, dtype)
-        # control: the kernel made to skip every 32nd position must fail
-        # the same check, or the tolerance could not see a wrong kernel
-        skip = valid.clone()
-        skip[:, :, ::32] = 0
-        bad = KLA.decode_attention(q, k, v, skip, scale)
-        if att_within(bad, want, dtype):
-            raise AssertionError(f"lsm_kernel {name} {dtype}: skipping every "
-                                 "32nd position passes the tolerance")
-        fault_err = float((bad.float() - want.float()).abs().max())
+        # controls: a planted fault must fail the same check, or the
+        # tolerance could not see a wrong kernel — the plain version with
+        # every 32nd position dropped against the kernel's output, and
+        # each kernel-side fault against the plain version
+        skipped = valid.clone()
+        skipped[..., ::32] = 0
+        pairs = {"skip_every_32nd": (got, KLA.decode_attention_plain(
+            q, ks, vs, skipped, scale))}
+        pairs.update((fault, (fn(), want)) for fault, fn in faults.items())
+        fault_err = {}
+        for fault, (bad, ref) in pairs.items():
+            if att_within(bad, ref, dtype):
+                raise AssertionError(f"lsm_kernel {name} {dtype}: fault "
+                                     f"{fault} passes the tolerance")
+            fault_err[fault] = float((bad.float() - ref.float()).abs().max())
+        del skipped, pairs
         out_abs = want.float().abs()
-        del skip, bad, want
-        # bytes: q and out once, the bitmap once, and K and V once for
-        # each valid (b, kv, l) row: the kernel never reads an invalid row
-        n_valid = int(valid.sum())
+        # bytes: q and out once, K and V once for each valid (b, kv, l)
+        # row (the kernel never reads another), and what locates the rows
         elt = q.element_size()
-        n_bytes = (2 * n_valid * dh * elt + valid.numel()
-                   + 2 * b * h * dh * elt)
+        n_bytes = 2 * n_valid * dh * elt + 2 * b * h * dh * elt + extra
         n_ops = 4 * n_valid * (h // kv) * dh
-        # SDPA yardstick: heads-major K/V and a per-q-head boolean mask,
-        # made outside the timed call
-        ks, vs = (t.transpose(1, 2).contiguous() for t in (k, v))
+        # SDPA yardstick on the (gathered) K/V: heads-major K/V and a
+        # per-q-head boolean mask, made outside the timed call
+        kh, vh = (t.transpose(1, 2).contiguous() for t in (ks, vs))
         mask = valid.bool().repeat_interleave(h // kv, dim=1)[:, :, None, :]
         q4 = q[:, :, None, :]
-
-        def kernel():
-            return KLA.decode_attention(q, k, v, valid, scale)
-
         rec = dict(
-            case=f"{name} {dtype}", shape=f"q ({b}, {h}, {dh}); k, v ({b}, "
-            f"{length}, {kv}, {dh}); {n_valid} valid (b, kv, l)",
+            case=f"{name} {dtype}", shape=shape, valid_rows=n_valid,
             max_abs_err=err, mean_abs_out=float(out_abs.mean()),
             max_abs_out=float(out_abs.max()), tol=ATT_TOL[dtype],
-            skip_every_32nd_max_abs_err=fault_err,
-            ms=device_ms(kernel, 20),
-            wall_ms=wall_ms(kernel, 20),
-            plain_ms=device_ms(lambda: KLA.decode_attention_plain(
-                q, k, v, valid, scale), 5),
+            fault_max_abs_err=fault_err,
+            ms=device_ms(kernel, 20), wall_ms=wall_ms(kernel, 20),
+            plain_ms=device_ms(plain, 5),
             library_ms=device_ms(lambda: F.scaled_dot_product_attention(
-                q4, ks, vs, attn_mask=mask, enable_gqa=True), 20),
+                q4, kh, vh, attn_mask=mask, enable_gqa=True), 20),
             bytes_bound_ms=bound_ms(n_bytes),
-            all_rows_bytes_bound_ms=bound_ms(
-                n_bytes + 2 * (valid.numel() - n_valid) * dh * elt),
             ops_bound_ms=n_ops / F32_FLOPS * 1e3)
+        if name == "tiered":
+            def replaced():
+                kk, vv, val = KLA.tiered_inputs(*args[1:8])
+                return KLA.decode_attention(q, kk, vv, val, scale)
+            rec["replaced_ms"] = device_ms(replaced, 20)
+            rec["replaced_wall_ms"] = wall_ms(replaced, 20)
         rec["bound_ms"] = max(rec["bytes_bound_ms"], rec["ops_bound_ms"])
         rec["bound_by"] = ("bytes" if rec["bytes_bound_ms"]
                            >= rec["ops_bound_ms"] else "operations")
         log(f"lsm_kernel {json.dumps(rec)}")
         cases.append(rec)
-        del q, k, v, ks, vs, valid, mask
+        del q, k, v, ks, vs, kh, vh, valid, mask, got, want
+        if name != "dense":
+            del args
+        torch.cuda.empty_cache()
     main = dict(cases[0])
     main.update(name="lsm_attention", route="cuda",
                 source="src/repro_torch/csrc/lsm_attention.cu",
@@ -758,6 +916,7 @@ def lm_serve_phase(device, seed: int, counters: dict):
     """`generate(kind="lsm")` at full width: 2 requests x 24,576-token
     prompts, 32 new tokens."""
     import torch
+    from repro_torch.kernels.lsm_attention import ops as KLA
     from repro_torch.models import lm
     from repro_torch.serving import generate
 
@@ -768,20 +927,23 @@ def lm_serve_phase(device, seed: int, counters: dict):
     init_s = time.perf_counter() - t0
     gen = torch.Generator().manual_seed(seed + 6)
     prompt = torch.randint(0, cfg.vocab, (2, SERVE_PROMPT), generator=gen)
-    for fn in counters.values():
+    for fn in (*counters.values(), KLA.lsm_decode_attention):
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
     stats = {}
     toks, caches = generate(cfg, model, {"tokens": prompt}, SERVE_STEPS,
                             "lsm", stats=stats)
     launches = {k: fn.launches for k, fn in counters.items()}
+    tiered = KLA.lsm_decode_attention.launches
     peak = torch.cuda.max_memory_allocated()
     n_steps = SERVE_STEPS - 1
     want = cfg.n_layers * n_steps
-    if launches["lsm_attention"] != want:
+    if launches["lsm_attention"] != want or tiered != want:
         raise AssertionError(f"lsm_attention launched "
-                             f"{launches['lsm_attention']} times, expected "
-                             f"{want} (one per layer per step)")
+                             f"{launches['lsm_attention']} times, "
+                             f"{tiered} of them in place on the tiered "
+                             f"cache; expected {want} of each (one per "
+                             f"layer per step)")
     if not stats["finite"]:
         raise AssertionError("lm_serve: a logit was not finite")
     n_blk = caches["n_blocks"].unique().tolist()
@@ -800,14 +962,18 @@ def lm_serve_phase(device, seed: int, counters: dict):
         decode_ms_per_step=stats["decode_s"] / n_steps * 1e3,
         decode_tokens_per_s=2 * n_steps / stats["decode_s"],
         n_blocks=want_blk, hot_len=want_hot, seals=stats["seals"],
-        max_memory_allocated=peak, launches=launches)
+        max_memory_allocated=peak, launches=launches,
+        tiered_in_place_launches=tiered)
     rec.update(decode_window(cfg, model, caches, toks[:, -1]))
     return model, caches, rec
 
 
 def decode_window(cfg, model, caches, tok, n: int = 4):
     """Device-busy share of `n` decode steps: host time unprofiled, then
-    the device time torch.profiler traces over the same number."""
+    the device time torch.profiler traces over the same number. No
+    `torch.gather` kernel may run in the window: the attention reads the
+    cold blocks in place (the only concatenation left is RoPE's,
+    recorded as `window_cat_ms`)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import lm
@@ -824,10 +990,15 @@ def decode_window(cfg, model, caches, tok, n: int = 4):
             caches.update(caches2)
         torch.cuda.synchronize()
     by_name = device_us_by_name(prof)
+    gathers = [k for k in by_name if "scatter_gather" in k]
+    if gathers:
+        raise AssertionError(f"decode window ran torch.gather: {gathers}")
     busy_ms = sum(by_name.values()) / 1e3
     wall = clock.total * 1e3
     return dict(window_steps=n, window_wall_ms=wall,
                 window_device_ms=busy_ms,
+                window_cat_ms=sum(us for k, us in by_name.items()
+                                  if "CatArray" in k) / 1e3,
                 device_busy_share=busy_ms / wall if busy_ms else
                 "not measured",
                 window_top=[(k[:48], round(us / 1e3, 4))
@@ -869,31 +1040,32 @@ def lm_seal_phase(cfg, model, caches, seed: int):
             and bool((caches["hot_len"] == w - mu).all())):
         raise AssertionError("lm_seal: counters did not move")
     seen = []
-    kernel = KLA.decode_attention
+    kernel = KLA.lsm_decode_attention
 
-    def first_call(q, k, v, valid, scale):
-        """Layer 0's call: put the wrapper back (its launch count lives
-        on it), run it, keep its inputs and output."""
-        KLA.decode_attention = kernel
-        out = kernel(q, k, v, valid, scale)
-        seen.append((q, k, v, valid, scale, out))
+    def first_call(*args):
+        """Layer 0's call: put the entry point back, run it, keep its
+        inputs and output."""
+        KLA.lsm_decode_attention = kernel
+        out = kernel(*args)
+        seen.append((args, out))
         return out
 
-    KLA.decode_attention = first_call
+    KLA.lsm_decode_attention = first_call
     try:
         logits, caches = lm.decode_step(cfg, model, torch.zeros(
             2, dtype=torch.int64, device=n0.device), caches, "lsm")
     finally:
-        KLA.decode_attention = kernel
-    q, k, v, valid, scale, out = seen[0]
-    err = att_close(out, KLA.decode_attention_plain(q, k, v, valid, scale),
-                    cfg.dtype)
+        KLA.lsm_decode_attention = kernel
+    args, out = seen[0]
+    err = att_close(out, KLA.lsm_decode_attention_plain(*args), cfg.dtype)
+    hot_len, ok = args[3], args[7]
     if not bool(torch.isfinite(logits).all()):
         raise AssertionError("lm_seal: a logit after the seal is not finite")
     return dict(n_blocks=int(caches["n_blocks"][0, 0]),
                 hot_len=int(caches["hot_len"][0, 0]),
                 layer0_kernel_max_abs_err=err,
-                layer0_valid_positions=int(valid.sum()))
+                layer0_valid_positions=int(hot_len.sum()) * cfg.n_kv
+                + int(ok.sum()) * mu)
 
 
 def lm_agree_phase(cfg, model, seed: int):
@@ -922,34 +1094,39 @@ def lm_agree_phase(cfg, model, seed: int):
     if n_blk > cfg.lsm_topk:
         raise AssertionError(f"lm_agree: {n_blk} blocks > topk")
     floor = {k: t.clone() for k, t in dense.items()}
-    kernel = KLA.decode_attention
-    w, mu = cfg.lsm_hot_window, cfg.lsm_block
+    kernel = KLA.decode_attention        # carries the launch count
+    entry = {"dense": "decode_attention_op", "lsm": "lsm_decode_attention"}
 
-    def step(caches, kind, attn=kernel, drop_block=False):
-        """One decode step through `attn` -> (logits, caches, layer 0's
-        attention output)."""
+    def plain_dense(q, k, v, lengths, scale):
+        """The dense entry point's plain version, on the card."""
+        valid = (torch.arange(k.shape[1], device=k.device)[None, :]
+                 < lengths[:, None])[:, None, :].expand(
+                     k.shape[0], k.shape[2], -1).to(torch.int8)
+        return KLA.decode_attention_plain(q, k, v, valid.contiguous(), scale)
+
+    def step(caches, kind, plain=False, drop_block=False):
+        """One decode step, the kernel (or for dense the plain version) in
+        every layer -> (logits, caches, layer 0's attention output). With
+        drop_block the top selected block is marked not ok."""
         seen = []
+        name = entry[kind]
+        real = getattr(KLA, name)
 
-        def call(q, k, v, valid, scale):
-            if drop_block:           # [hot | selected]: the first block
-                valid = valid.clone()
-                valid[:, :, w:w + mu] = 0
-            # the wrapper counts on the module's name: put it back for
-            # the call
-            KLA.decode_attention = kernel
-            try:
-                out = attn(q, k, v, valid, scale)
-            finally:
-                KLA.decode_attention = call
+        def call(*args):
+            if drop_block:               # (q, hot_k, ..., ids, ok, scale)
+                ok = args[7].clone()
+                ok[:, :, 0] = False
+                args = args[:7] + (ok,) + args[8:]
+            out = plain_dense(*args) if plain else real(*args)
             if not seen:
                 seen.append(out)
             return out
 
-        KLA.decode_attention = call
+        setattr(KLA, name, call)
         try:
             lg, caches = lm.decode_step(cfg, model, tok, caches, kind)
         finally:
-            KLA.decode_attention = kernel
+            setattr(KLA, name, real)
         return lg.float(), caches, seen[0]
 
     def rel_l2(a, b):
@@ -981,7 +1158,7 @@ def lm_agree_phase(cfg, model, seed: int):
         # the noise floor: the same dense step with the plain version's
         # f32 arithmetic in place of the kernel (same positions, another
         # summation order, bf16 rounding through 32 layers)
-        lp, floor, _ = step(floor, "dense", attn=KLA.decode_attention_plain)
+        lp, floor, _ = step(floor, "dense", plain=True)
         floor_errs.append(rel_l2(lp, ld))
         tok = ld.argmax(-1)
     if max(errs) > 2e-2:
@@ -1050,14 +1227,17 @@ def main() -> int:
 
     counters = {"bloom_probe": KBP.bloom_probe_many,
                 "fence_lookup": KFL.fence_lookup_many,
-                "heap_merge": KHM.merge_round,
+                "heap_merge": KHM.kway_merge,
                 "range_merge": KRM.merge_round,
                 "lsm_attention": KLA.decode_attention}
     for fn in counters.values():
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
-    eng, main = main_phase(device, args.seed, args.writes)
+    merges = {}
+    with merge_tally(merges, KHM.kway_merge):
+        eng, main = main_phase(device, args.seed, args.writes)
     launches = {k: fn.launches for k, fn in counters.items()}
+    main["heap_merge_by_shape"] = merges
     main["max_memory_allocated"] = torch.cuda.max_memory_allocated()
     log(f"main [{card}]: " + json.dumps(main))
     log(f"main launches: {launches}")

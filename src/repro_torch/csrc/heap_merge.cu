@@ -1,24 +1,40 @@
-// heap_merge: one round of the HeapMerge tournament (paper 2.5).
+// heap_merge: the k-way run merge of HeapMerge (paper 2.5).
 //
 // Replaces repro/kernels/heap_merge/heap_merge.py `_merge_kernel`
-// (`merge_two_pallas`), which merged one pair of runs per launch. The
-// paper's serial min-heap becomes a log2(k) tournament of two-way merges
-// driven by the host (repro_torch/kernels/heap_merge/ops.py); this kernel
-// runs every pair of one round in a single launch. The runs of a round
-// lie back to back in one flat buffer and pair p merges
-// [lo_p, mid_p) with [mid_p, hi_p) in place (an odd last run is a pair
-// with an empty second half, i.e. a copy). Lanes are (key, weight, seq,
-// source-index); the payload never enters the merge.
+// (`merge_two_pallas`), which merged one pair of runs per launch, the
+// k-way merge being a log2(k) tournament of such launches driven by the
+// host. Lanes are (key, weight, seq, source-index); the payload never
+// enters the merge. Two entry points:
 //
-// One thread per output element t of pair p (blockIdx.y): a merge-path
-// binary search on the diagonal finds how many of its first t outputs
-// come from the first run, then the thread takes from one side. Ties on
-// (key, seq) go to the second run, as in the TPU kernel.
+//  * `heap_merge_round_launch` — one tournament round (every pair of
+//    the round in one launch). One thread per output element t of pair
+//    p: a merge-path binary search on the diagonal finds how many of its
+//    first t outputs come from the first run. Ties on (key, seq) go to
+//    the second run, as in the TPU kernel. Each round reads and writes
+//    every lane again.
+//  * `heap_merge_kway_launch` — the whole merge of k runs of `cap` lanes
+//    in two launches, each lane read once and written once. The
+//    tournament's order is a stable sort by (key, seq) with ties to the
+//    higher run, then by position: the total order (key, seq, -run,
+//    pos). (1) `kway_split_kernel`: every S-th lane of every run is a
+//    sample; every CTA copies all samples into shared memory where they
+//    fit (else it reads them in place), and one warp per sample counts,
+//    in every run, the samples that precede it (a binary search over
+//    the samples), which gives its rank among the samples. Every G-th sample in that order bounds a tile and writes
+//    its counts. (2) `kway_merge_kernel`: one CTA per tile first turns
+//    its two boundaries' sample counts into lane counts (a search of S
+//    lanes per run, a thread each), then loads its k sub-ranges (fewer
+//    than S * (G + k) lanes in all) into shared memory, merges them
+//    there in log2(k) rounds of pairwise merge-path merges (each thread
+//    an equal run of outputs: one diagonal search, then a sequential
+//    merge), and writes the tile once at its output rank.
 //
-// Bound: bytes — each round reads and writes 16 bytes per element, but
-// the per-element search adds ~log2(n) scattered 8-byte probes, served
-// mostly from L2. A per-tile split with a shared-memory merge would cut
-// those probes; this first kernel keeps the simple per-element form.
+// Bound: bytes — 16 bytes read and 16 written per lane. The k-way form
+// adds the samples (every split CTA copies all k * cap / S of them from
+// L2 into shared memory where they fit), log2(cap / S) probes per
+// (sample, run) pair, log2(S) device-memory probes per (boundary, run)
+// pair, and the split table (k ints a tile). Both kernels are bound by
+// latency — dependent searches and round barriers — not by those bytes.
 #include "common.cuh"
 
 namespace {
@@ -47,7 +63,346 @@ __global__ void merge_round_kernel(
   oix[lo + t] = ix[src];
 }
 
+// First index i in [0, n) of the sorted (key, seq) pairs at rk, rs
+// (probed at i * stride) that is not before x (upper: that is after x).
+template <typename K, typename S>
+__device__ __forceinline__ int rank_in(const K* rk, const S* rs, int n,
+                                       int32_t xk, int32_t xs, bool upper,
+                                       int stride = 1) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    const int64_t at = static_cast<int64_t>(mid) * stride;
+    const bool go = upper ? !slsm::before(xk, xs, rk[at], rs[at])
+                          : slsm::before(rk[at], rs[at], xk, xs);
+    if (go) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+constexpr int kSplitThreads = 1024;
+constexpr int kBatch = 8;                 // loads a thread keeps in flight
+
+// Row pitch of a run's samples in shared memory: one more than a
+// multiple of 32, so that lanes probing the same index of different
+// runs hit different banks.
+__host__ __device__ __forceinline__ int sample_pitch(int per_run) {
+  return (per_run + 31) / 32 * 32 + 1;
+}
+
+// Lanes of run rr that precede boundary sample x (run r, lane i) in
+// (key, seq, -run, pos) order, given c samples of rr precede it: they
+// lie in [(c - 1) * S + 1, min(c * S, cap)].
+__device__ __forceinline__ int lanes_before(
+    const int32_t* k, const int32_t* s, int cap, int step, int r, int i,
+    int32_t xk, int32_t xs, int rr, int c) {
+  if (rr == r) return i;
+  if (c == 0) return 0;
+  const int lo = (c - 1) * step + 1;
+  const int hi = c * step < cap ? c * step : cap;
+  const int64_t off = static_cast<int64_t>(rr) * cap + lo;
+  return lo + rank_in(k + off, s + off, hi - lo, xk, xs, rr > r);
+}
+
+// Samples are every S-th lane of every run. With kShared a CTA first
+// copies all of them into shared memory (keys and seqs apart, a padded
+// row per run); without, they are read in place (every S-th lane of the
+// runs, from L2), for merges whose samples do not fit. Then one warp per
+// sample (run r, lane i = m * S), a lane per run r' (32 runs at a time),
+// counts the samples of r' that precede it in (key, seq, -run, pos)
+// order — a binary search over the samples — and their sum is its rank
+// among the samples. A sample whose rank is a multiple of G bounds a
+// tile: it counts again and writes its counts as row rank / G of
+// `split`, and itself (q) as who[rank / G]. The merge kernel turns them
+// into lane counts.
+template <bool kShared>
+__global__ void __launch_bounds__(kSplitThreads)
+kway_split_kernel(const int32_t* __restrict__ k, const int32_t* __restrict__ s,
+                  int32_t* __restrict__ split, int32_t* __restrict__ who,
+                  int n_runs, int cap, int step, int per_run, int group) {
+  extern __shared__ int32_t sk[];          // (n_runs, pitch) keys, seqs
+  const int pitch = sample_pitch(per_run);
+  int32_t* ss = sk + n_runs * pitch;
+  const int n_samp = n_runs * per_run;
+  if constexpr (kShared) {
+    for (int q0 = threadIdx.x; q0 < n_samp; q0 += kBatch * blockDim.x) {
+      int32_t vk[kBatch], vs[kBatch];      // kBatch loads in flight
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int q = q0 + u * blockDim.x;
+        if (q < n_samp) {
+          const int64_t at = static_cast<int64_t>(q / per_run) * cap
+                             + static_cast<int64_t>(q % per_run) * step;
+          vk[u] = k[at];
+          vs[u] = s[at];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int q = q0 + u * blockDim.x;
+        if (q < n_samp) {
+          const int at = q / per_run * pitch + q % per_run;
+          sk[at] = vk[u];
+          ss[at] = vs[u];
+        }
+      }
+    }
+    __syncthreads();
+  }
+  const int lane = threadIdx.x & 31, warps = blockDim.x >> 5;
+  for (int q = blockIdx.x * warps + (threadIdx.x >> 5); q < n_samp;
+       q += gridDim.x * warps) {
+    const int r = q / per_run, m = q % per_run;
+    int32_t xk, xs;
+    if constexpr (kShared) {
+      xk = sk[r * pitch + m];
+      xs = ss[r * pitch + m];
+    } else {
+      const int64_t at = static_cast<int64_t>(r) * cap
+                         + static_cast<int64_t>(m) * step;
+      xk = k[at];
+      xs = s[at];
+    }
+    // samples of run rr before this one
+    auto count = [&](int rr) {
+      if (rr == r) return m;
+      if constexpr (kShared)
+        return rank_in(sk + rr * pitch, ss + rr * pitch, per_run, xk, xs,
+                       rr > r);
+      const int64_t at = static_cast<int64_t>(rr) * cap;
+      return rank_in(k + at, s + at, per_run, xk, xs, rr > r, step);
+    };
+    int srank = 0;
+    for (int rr = lane; rr < n_runs; rr += 32) srank += count(rr);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      srank += __shfl_xor_sync(0xffffffffu, srank, o);
+    if (srank % group) continue;
+    const int64_t row = srank / group;
+    for (int rr = lane; rr < n_runs; rr += 32)
+      split[row * n_runs + rr] = count(rr);
+    if (lane == 0) who[row] = q;
+  }
+}
+
+// Merge-path split in shared memory: how many of a[0, n) are among the
+// first t outputs of merging a with b[0, m), ties going to b.
+__device__ __forceinline__ int path_split(const int32_t* ak,
+                                          const int32_t* as, int n,
+                                          const int32_t* bk,
+                                          const int32_t* bs, int m, int t) {
+  int lo = t - m > 0 ? t - m : 0;
+  int hi = t < n ? t : n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    const int bj = t - mid - 1;
+    if (slsm::before(ak[mid], as[mid], bk[bj], bs[bj])) lo = mid + 1;
+    else hi = mid;
+  }
+  return lo;
+}
+
+// One CTA per tile j, between boundary samples who[j] and who[j + 1]
+// (the last tile ends at cap): a thread per (boundary, run) turns the
+// boundary's sample counts into lane counts, a search of S lanes; the
+// CTA loads those lanes of every run, merges them in shared memory and
+// writes them at the output rank of its first boundary (the sum of its
+// lane counts). Shared memory: two buffers of 4 lanes x `tile`.
+// A round merges segments 2i and 2i+1 (ties to 2i+1; an odd last
+// segment is copied): each thread takes an equal run of output
+// positions, finds where it starts by one merge-path search, and merges
+// sequentially from there.
+template <int kThreads>
+__global__ void __launch_bounds__(kThreads)
+kway_merge_kernel(const int32_t* __restrict__ k,
+                  const int32_t* __restrict__ w,
+                  const int32_t* __restrict__ s,
+                  const int32_t* __restrict__ ix,
+                  const int32_t* __restrict__ split,
+                  const int32_t* __restrict__ who, int32_t* __restrict__ ok,
+                  int32_t* __restrict__ ow, int32_t* __restrict__ os,
+                  int32_t* __restrict__ oix, int n_runs, int cap, int tile,
+                  int step, int per_run) {
+  extern __shared__ int32_t smem[];
+  // buffer b of the two starts at smem + b * 4 * tile (no pointer array:
+  // one indexed at run time would live in local memory)
+  int32_t* lo = smem + 8 * tile;            // (n_runs,) first lane taken
+  int32_t* hi = lo + n_runs;                // (n_runs,) last lane + 1
+  int32_t* bnd = hi + n_runs;               // (n_runs + 1,) run bounds
+  __shared__ int base;
+  const int j = blockIdx.x;
+  const bool last = j + 1 == static_cast<int>(gridDim.x);
+  // lane counts of this tile's two boundaries, a thread per (bound, run)
+  for (int x = threadIdx.x; x < 2 * n_runs; x += blockDim.x) {
+    const int r = x % n_runs, row = j + x / n_runs;
+    int c = cap;                           // the last tile ends at cap
+    if (x < n_runs || !last) {
+      const int q = who[row];
+      const int qr = q / per_run, i = q % per_run * step;
+      c = lanes_before(k, s, cap, step, qr, i,
+                       k[static_cast<int64_t>(qr) * cap + i],
+                       s[static_cast<int64_t>(qr) * cap + i], r,
+                       split[static_cast<int64_t>(row) * n_runs + r]);
+    }
+    if (x < n_runs) lo[r] = c; else hi[r] = c;
+  }
+  __syncthreads();
+  // run r's end in the tile (a prefix of lengths), and the tile's output
+  // offset (lanes before its first boundary)
+  for (int x = threadIdx.x; x < n_runs; x += blockDim.x) {
+    int pre = 0;
+    for (int r = 0; r <= x; ++r) pre += hi[r] - lo[r];
+    bnd[x + 1] = pre;
+  }
+  if (threadIdx.x == 0) {
+    int off = 0;
+    for (int r = 0; r < n_runs; ++r) off += lo[r];
+    bnd[0] = 0;
+    base = off;
+  }
+  __syncthreads();
+  const int total = bnd[n_runs];
+  const int32_t* src[4] = {k, w, s, ix};
+  for (int p0 = threadIdx.x; p0 < total; p0 += kBatch * blockDim.x) {
+    int32_t v[kBatch][4];                   // kBatch lanes in flight
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int p = p0 + u * blockDim.x;
+      if (p < total) {
+        int a = 0, b = n_runs;              // run r: bnd[r] <= p < bnd[r+1]
+        while (b - a > 1) {
+          const int mid = (a + b) >> 1;
+          if (bnd[mid] <= p) a = mid; else b = mid;
+        }
+        const int64_t at = static_cast<int64_t>(a) * cap + lo[a]
+                           + (p - bnd[a]);
+#pragma unroll
+        for (int l = 0; l < 4; ++l) v[u][l] = src[l][at];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int p = p0 + u * blockDim.x;
+      if (p < total)
+#pragma unroll
+        for (int l = 0; l < 4; ++l) smem[l * tile + p] = v[u][l];
+    }
+  }
+  __syncthreads();
+  // round t merges segments of 2^t runs: segment g spans runs
+  // [g * 2^t, (g + 1) * 2^t), so its bounds are bnd[min(g << t, n_runs)]
+  int cur = 0;
+  const int per = (total + blockDim.x - 1) / blockDim.x;
+  for (int t = 0, n = n_runs; n > 1; ++t, n = (n + 1) >> 1) {
+    auto edge = [&](int g) {
+      return bnd[(g << t) < n_runs ? g << t : n_runs];
+    };
+    const int32_t* from_buf = smem + cur * 4 * tile;
+    int32_t* to_buf = smem + (cur ^ 1) * 4 * tile;
+    const int32_t* ck = from_buf;
+    const int32_t* cs = from_buf + 2 * tile;
+    int p = threadIdx.x * per;
+    const int end = p + per < total ? p + per : total;
+    while (p < end) {
+      int a = 0, b = n;                     // segment a holds p
+      while (b - a > 1) {
+        const int mid = (a + b) >> 1;
+        if (edge(mid) <= p) a = mid; else b = mid;
+      }
+      const int pa = a & ~1, x0 = edge(pa), x1 = edge(pa + 1),
+                x2 = edge(pa + 2);
+      const int na = x1 - x0, nb = x2 - x1;
+      const int stop = end < x2 ? end : x2;
+      int ia = path_split(ck + x0, cs + x0, na, ck + x1, cs + x1, nb, p - x0);
+      int ib = p - x0 - ia;
+      for (; p < stop; ++p) {
+        const bool take_a =
+            ib >= nb || (ia < na && slsm::before(ck[x0 + ia], cs[x0 + ia],
+                                                 ck[x1 + ib], cs[x1 + ib]));
+        const int from = take_a ? x0 + ia++ : x1 + ib++;
+#pragma unroll
+        for (int l = 0; l < 4; ++l)
+          to_buf[l * tile + p] = from_buf[l * tile + from];
+      }
+    }
+    __syncthreads();
+    cur ^= 1;
+  }
+  const int64_t o = base;
+  const int32_t* out_buf = smem + cur * 4 * tile;
+  int32_t* dst[4] = {ok, ow, os, oix};
+  for (int p = threadIdx.x; p < total; p += blockDim.x)
+#pragma unroll
+    for (int l = 0; l < 4; ++l) dst[l][o + p] = out_buf[l * tile + p];
+}
+
+template <int kThreads>
+cudaError_t merge_tiles(const void* k, const void* w, const void* s,
+                        const void* ix, const void* split, const void* who,
+                        void* ok, void* ow, void* os, void* oix,
+                        long long n_runs, long long cap, long long step,
+                        long long tile, int per_run, unsigned tiles,
+                        cudaStream_t st) {
+  const size_t smem = (8 * tile + 3 * n_runs + 1) * sizeof(int32_t);
+  const cudaError_t err = cudaFuncSetAttribute(
+      kway_merge_kernel<kThreads>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kway_merge_kernel<kThreads><<<tiles, kThreads, smem, st>>>(
+      static_cast<const int32_t*>(k), static_cast<const int32_t*>(w),
+      static_cast<const int32_t*>(s), static_cast<const int32_t*>(ix),
+      static_cast<const int32_t*>(split), static_cast<const int32_t*>(who),
+      static_cast<int32_t*>(ok), static_cast<int32_t*>(ow),
+      static_cast<int32_t*>(os), static_cast<int32_t*>(oix),
+      static_cast<int>(n_runs), static_cast<int>(cap),
+      static_cast<int>(tile), static_cast<int>(step), per_run);
+  return cudaGetLastError();
+}
+
 }  // namespace
+
+// The k-way merge: lanes k/w/s/ix and outputs (n_runs * cap,) int32,
+// runs back to back, each sorted by (key, seq). `step` = S, `group` = G
+// with S * (G + n_runs) <= tile; split (n_tiles, n_runs) and who
+// (n_tiles,) int32 scratch, n_tiles = ceil(n_runs * ceil(cap / S) / G).
+// shared != 0: each of the `split_ctas` split CTAs holds all
+// n_runs * ceil(cap / S) samples, 8 bytes each of shared memory; else
+// the split CTAs search the samples in place.
+extern "C" int heap_merge_kway_launch(
+    const void* k, const void* w, const void* s, const void* ix, void* split,
+    void* who, void* ok, void* ow, void* os, void* oix, long long n_runs,
+    long long cap, long long step, long long group, long long tile,
+    long long split_ctas, long long shared, void* stream) {
+  if (n_runs <= 0 || cap <= 0) return static_cast<int>(cudaGetLastError());
+  const auto st = static_cast<cudaStream_t>(stream);
+  const int per_run = static_cast<int>((cap + step - 1) / step);
+  const int64_t samples = n_runs * per_run;
+  const unsigned tiles = static_cast<unsigned>((samples + group - 1) / group);
+  const auto split_kernel =
+      shared ? kway_split_kernel<true> : kway_split_kernel<false>;
+  const size_t split_smem =
+      shared ? 2 * n_runs * sample_pitch(per_run) * sizeof(int32_t) : 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      split_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(split_smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  split_kernel<<<static_cast<unsigned>(split_ctas), kSplitThreads,
+                 split_smem, st>>>(
+      static_cast<const int32_t*>(k), static_cast<const int32_t*>(s),
+      static_cast<int32_t*>(split), static_cast<int32_t*>(who),
+      static_cast<int>(n_runs), static_cast<int>(cap),
+      static_cast<int>(step), per_run, static_cast<int>(group));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // small tiles take more threads: a thread merges ~2-4 lanes a round
+  return static_cast<int>(
+      tile <= 1024 ? merge_tiles<512>(k, w, s, ix, split, who, ok, ow, os,
+                                      oix, n_runs, cap, step, tile, per_run,
+                                      tiles, st)
+                   : merge_tiles<256>(k, w, s, ix, split, who, ok, ow, os,
+                                      oix, n_runs, cap, step, tile, per_run,
+                                      tiles, st));
+}
 
 // Lanes k/w/s/ix and outputs (N,) int32; pairs (P, 3) int64 of
 // (lo, mid, hi); longest = the longest pair, hi - lo.

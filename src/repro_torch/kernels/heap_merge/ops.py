@@ -1,18 +1,23 @@
-"""heap_merge: the k-way run merge (HeapMerge, paper 2.5) as a tournament.
+"""heap_merge: the k-way run merge (HeapMerge, paper 2.5).
 
 `heap_merge` merges k sorted runs (k, cap) into one compacted run the
-way the reference's `heap_merge_op` does: log2(k) rounds of two-way
-merges over the (key, weight, seq, source-index) lanes — an odd last run
-is carried to the next round — then the weighted survivor epilogue
-(newest record per key, annihilation when `drop`), a stable compaction
-and one payload gather through the survivors' source indices. The
-layout is identical to `core.runs.merge_runs`.
+way the reference's `heap_merge_op` does: the (key, weight, seq,
+source-index) lanes are merged — the reference runs log2(k) rounds of
+two-way merges, an odd last run carried to the next round — then the
+weighted survivor epilogue (newest record per key, annihilation when
+`drop`), a stable compaction and one payload gather through the
+survivors' source indices. The layout is identical to
+`core.runs.merge_runs`.
 
-Each round is one call of `merge_round`, the kernel's wrapper: it
-launches `csrc/heap_merge.cu` over every pair of the round for CUDA
-tensors (counted in `merge_round.launches`) and runs
-`merge_round_plain` for CPU tensors. The epilogue is PyTorch glue on
-both, as it was jnp glue around the Pallas kernel.
+The merge is one call of `kway_merge`, the kernel's wrapper: for CUDA
+tensors it launches `csrc/heap_merge.cu`'s k-way merge (two kernels,
+counted in `kway_merge.launches`), for CPU tensors it runs
+`kway_merge_plain`. Both give the tournament's order exactly: a stable
+sort by (key, seq), ties to the higher run, then by position. The
+tournament itself stays as `tournament` over `merge_round` (one launch
+a round, `merge_round.launches`), the reference's two-way contract. The
+epilogue is PyTorch glue on both devices, as it was jnp glue around the
+Pallas kernel.
 """
 from __future__ import annotations
 
@@ -82,6 +87,91 @@ def merge_round(k, w, s, ix, pairs):
 merge_round.launches = 0
 
 
+KWAY_TILES = (1024, 2048)  # lanes a merge CTA holds (two buffers of 16 B)
+KWAY_SMALL = 1 << 18       # merges of fewer lanes take the smaller tile
+KWAY_SAMPLE_BYTES = 200 * 1024   # the samples a split CTA holds
+KWAY_SPLIT_SAMPLES = 64    # samples a split CTA ranks (each copies all)
+SPLIT_CTAS = 264           # split CTAs in place: 2 of 1,024 threads an SM
+
+
+def _pitch(per_run: int) -> int:
+    """A run's row of samples in shared memory (`sample_pitch`)."""
+    return -(-per_run // 32) * 32 + 1
+
+
+def kway_geometry(n_runs: int, cap: int):
+    """(tile, step S, group G, tiles, shared) of the k-way kernel: every
+    S-th lane of a run is a sample, every G-th sample in merged order
+    bounds a tile, and a tile then holds fewer than S * (G + n_runs) <=
+    `tile` lanes. S doubles while the samples miss KWAY_SAMPLE_BYTES and
+    G stays positive; `shared` says whether they fit there (else
+    the split kernel searches them in place). Up to half the larger
+    tile's lanes in runs (1,024); more raise."""
+    tile = KWAY_TILES[n_runs * cap >= KWAY_SMALL
+                      or n_runs > KWAY_TILES[0] // 2]
+    if not 1 <= n_runs <= tile // 2:
+        raise ValueError(f"heap_merge: the k-way kernel merges 1 to "
+                         f"{tile // 2} runs, not {n_runs}")
+    step = 1 << ((tile // (2 * n_runs)).bit_length() - 1)
+
+    def fits(step):
+        return 8 * n_runs * _pitch(-(-cap // step)) <= KWAY_SAMPLE_BYTES
+    while not fits(step) and tile // (2 * step) > n_runs:
+        step *= 2
+    group = tile // step - n_runs
+    samples = n_runs * -(-cap // step)
+    return tile, step, group, -(-samples // group), fits(step)
+
+
+def kway_merge_plain(k, w, s, ix, n_runs: int):
+    """Plain PyTorch version of the k-way merge of `n_runs` runs laid back
+    to back: one stable sort of the (key, seq) composite over the runs
+    taken last run first — the tournament's order, where ties go to the
+    higher run and then to the lower position."""
+    rev = [a.reshape(n_runs, -1).flip(0).reshape(-1) for a in (k, w, s, ix)]
+    order = torch.sort(RU.composite(rev[0], rev[2]), stable=True).indices
+    return tuple(a[order] for a in rev)
+
+
+def kway_merge(k, w, s, ix, n_runs: int):
+    """Merge `n_runs` (key, seq)-sorted runs of equal length laid back to
+    back in four (N,) int32 lanes -> the four merged lanes, in two
+    launches on the card whatever the lanes (up to 1,024 runs)."""
+    if k.device.type == "cpu":
+        return kway_merge_plain(k, w, s, ix, n_runs)
+    dev = k.device
+    lanes = (k, w, s, ix)
+    if dev.type != "cuda" or any(a.device != dev for a in lanes):
+        raise ValueError("heap_merge: lanes must share one CUDA device "
+                         "(or all lie on the CPU)")
+    if any(a.dtype != torch.int32 or a.dim() != 1 or not a.is_contiguous()
+           or a.shape != k.shape for a in lanes):
+        raise ValueError("heap_merge: four contiguous (N,) int32 lanes "
+                         "expected")
+    if n_runs < 1 or k.shape[0] % n_runs:
+        raise ValueError(f"heap_merge: {k.shape[0]} lanes are not "
+                         f"{n_runs} runs of one length")
+    cap = k.shape[0] // n_runs
+    tile, step, group, tiles, shared = kway_geometry(n_runs, cap)
+    split = torch.empty(tiles * n_runs, dtype=torch.int32, device=dev)
+    who = torch.empty(tiles, dtype=torch.int32, device=dev)
+    outs = tuple(torch.empty_like(a) for a in lanes)
+    samples = n_runs * -(-cap // step)
+    ctas = (min(132, -(-samples // KWAY_SPLIT_SAMPLES)) if shared
+            else min(SPLIT_CTAS, -(-samples // 32)))
+    fn = _build.bind("heap_merge", "heap_merge_kway_launch", 10, 7)
+    _build.check(fn(*(a.data_ptr() for a in lanes), split.data_ptr(),
+                    who.data_ptr(), *(o.data_ptr() for o in outs), n_runs,
+                    cap, step, group, tile, ctas, int(shared),
+                    torch.cuda.current_stream(dev).cuda_stream),
+                 "heap_merge")
+    kway_merge.launches += 2          # the split and the merge kernel
+    return outs
+
+
+kway_merge.launches = 0
+
+
 def tournament(k, w, s, ix, cap: int, n_runs: int, round_fn=None):
     """log2(n_runs) rounds of `round_fn` (default `merge_round`) over runs
     of `cap` lanes laid back to back; returns the merged (key,
@@ -102,10 +192,9 @@ def heap_merge(keys2d, vals2d, wts2d, seqs2d, drop_annihilated: bool):
     if total >= 2 ** 31:
         raise ValueError(f"heap_merge: {total} lanes exceed int32 indices")
     ix = torch.arange(total, dtype=torch.int32, device=keys2d.device)
-    mk, mw, ms, mi = tournament(keys2d.reshape(-1).contiguous(),
+    mk, mw, ms, mi = kway_merge(keys2d.reshape(-1).contiguous(),
                                 wts2d.reshape(-1).contiguous(),
-                                seqs2d.reshape(-1).contiguous(), ix, cap,
-                                n_runs)
+                                seqs2d.reshape(-1).contiguous(), ix, n_runs)
     valid = RU.survivor_mask(mk, mw, drop_annihilated)
     order = RU.partition_order(valid)
     ok = valid[order]

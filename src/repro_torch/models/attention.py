@@ -4,8 +4,11 @@ single-device paths).
 
 Both decode paths end in one call of the `lsm_attention` kernel
 (`kernels/lsm_attention`), which the reference left to plain jnp on this
-path. Prefill attention is no kernel in the reference either; here it is
-a plain chunked mirror of its `flash_attention`.
+path: the dense one through `decode_attention_op` (validity from the
+lengths), the tiered one through `lsm_decode_attention`, which reads the
+hot window and the selected cold blocks in place. Prefill attention is
+no kernel in the reference either; here it is a plain chunked mirror of
+its `flash_attention`.
 
 Decode writes the new token's K/V into the cache in place (the
 reference returns updated copies) at a position the caller read to the
@@ -211,8 +214,8 @@ def lsm_decode_self_attention(cfg, p: Attention, x1, cache: dict, pos,
     # block selection (the filter probe): q in the cache dtype, f32 scores
     qg = q[:, 0].to(cache["blk_k"].dtype)                   # (B, H, hd)
     ids, ok = KLA.select_blocks(qg, cache["summ"], cache["n_blocks"], topk)
-    k_all, v_all, valid = KLA.tiered_inputs(
-        hot_k, hot_v, hot_len, cache["blk_k"], cache["blk_v"], ids, ok)
-    out = KLA.decode_attention(qg, k_all, v_all, valid, hd ** -0.5)
+    out = KLA.lsm_decode_attention(qg, hot_k, hot_v, hot_len,
+                                   cache["blk_k"], cache["blk_v"], ids, ok,
+                                   hd ** -0.5)
     out = out.reshape(b, 1, cfg.n_heads * hd).to(x1.dtype)
     return p.wo(out), dict(cache, hot_len=hot_len)

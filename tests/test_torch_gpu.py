@@ -108,6 +108,48 @@ def test_heap_merge_kernel_matches_plain(cuda, k):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("k", [2, 3, 20, 50, 600])
+def test_kway_merge_kernel_matches_plain(cuda, k):
+    """The two-launch k-way merge against its plain version on all four
+    lanes, partly filled runs (padding ties across runs)."""
+    rng = np.random.default_rng(10 + k)
+    K, _, W, S = _runs(rng, k, 3000)
+    flat = [_t(a.reshape(-1), cuda) for a in (K, W, S)]
+    ix = torch.arange(K.size, dtype=torch.int32, device=cuda)
+    before = KHM.kway_merge.launches
+    got = KHM.kway_merge(*flat, ix, k)
+    torch.cuda.synchronize()
+    assert KHM.kway_merge.launches == before + 2
+    want = KHM.kway_merge_plain(*flat, ix, k)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,cap,sample_bytes", [(5, 2000, 64),
+                                                (300, 200, None)])
+def test_kway_merge_in_place_split_matches_plain(cuda, monkeypatch, k, cap,
+                                                 sample_bytes):
+    """A merge whose samples do not fit a split CTA's shared memory (made
+    so with a small sample budget, or by 300 runs) searches them in place:
+    still two launches, no round kernel, the plain version's order."""
+    rng = np.random.default_rng(7 + k)
+    K, _, W, S = _runs(rng, k, cap)
+    flat = [_t(a.reshape(-1), cuda) for a in (K, W, S)]
+    ix = torch.arange(K.size, dtype=torch.int32, device=cuda)
+    if sample_bytes:
+        monkeypatch.setattr(KHM.ops, "KWAY_SAMPLE_BYTES", sample_bytes)
+    assert not KHM.ops.kway_geometry(k, cap)[-1]
+    before = (KHM.kway_merge.launches, KHM.merge_round.launches)
+    got = KHM.kway_merge(*flat, ix, k)
+    torch.cuda.synchronize()
+    assert KHM.kway_merge.launches == before[0] + 2
+    assert KHM.merge_round.launches == before[1]
+    for g, w in zip(got, KHM.kway_merge_plain(*flat, ix, k)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("n_seg", [2, 3, 91])
 def test_range_merge_kernel_matches_plain(cuda, n_seg):
     rng = np.random.default_rng(n_seg)
@@ -181,6 +223,108 @@ def test_lsm_attention_kernel_matches_plain(cuda, group, dh, length, dtype):
         bad = KLA.decode_attention(q, k, v, skip, dh ** -0.5)
         assert not torch.allclose(bad.float(), want.float(),
                                   **_att_tol(want.float(), dtype))
+
+
+def _fails(bad, want, dtype):
+    return not torch.allclose(bad.float(), want.float(),
+                              **_att_tol(want.float(), dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [64, 128, 256])
+@pytest.mark.parametrize("group", [1, 3, 4, 8])
+@pytest.mark.parametrize("case", ["short", "long"])
+def test_lsm_decode_attention_kernel_matches_plain(cuda, case, group, dh,
+                                                   dtype):
+    """The tiered kernel reading [hot | selected blocks] in place against
+    its plain version (gather, concatenate, bitmap). Every row it must not
+    read is NaN: hot rows at or past hot_len, and every (block, kv head)
+    that is not a selected `ok` block. short: hot_len 1 and W, n_blocks 0
+    and 2 < topk; long: n_blocks > topk, so selection skips blocks."""
+    gen = torch.Generator(cuda).manual_seed(group * 100 + dh)
+    b, kv, w, nb, mu, topk = 2, 2, 128, 12, 64, 4
+    h = group * kv
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=cuda).to(dtype)
+
+    q, hk, hv = rnd(b, h, dh), rnd(b, w, kv, dh), rnd(b, w, kv, dh)
+    bk, bv = rnd(b, nb, mu, kv, dh), rnd(b, nb, mu, kv, dh)
+    summ = bk.float().mean(dim=2).to(dtype)
+    hot_len, n_blocks = {"short": ([1, w], [0, 2]),
+                         "long": ([w // 2 + 5, 37], [nb, topk + 3])}[case]
+    hot_len = torch.tensor(hot_len, dtype=torch.int32, device=cuda)
+    ids, ok = KLA.select_blocks(q, summ, torch.tensor(n_blocks,
+                                                      device=cuda), topk)
+    read = torch.zeros(b, nb, kv, dtype=torch.bool, device=cuda)
+    for r in range(b):
+        for x in range(kv):
+            read[r, ids[r, x][ok[r, x]], x] = True
+        hk[r, int(hot_len[r]):] = float("nan")
+        hv[r, int(hot_len[r]):] = float("nan")
+    gone = ~read[:, :, None, :, None].expand_as(bk)
+    bk[gone] = float("nan")
+    bv[gone] = float("nan")
+    args = (q, hk, hv, hot_len, bk, bv, ids, ok, dh ** -0.5)
+    before = KLA.decode_attention.launches
+    before_tiered = KLA.lsm_decode_attention.launches
+    got = KLA.lsm_decode_attention(*args)
+    torch.cuda.synchronize()
+    assert KLA.decode_attention.launches == before + 1
+    want = KLA.lsm_decode_attention_plain(*args)
+    assert got.dtype == dtype and torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(),
+                               **_att_tol(want.float(), dtype))
+    assert KLA.lsm_decode_attention.launches == before_tiered + 1
+    # planted faults must fail the check: the plain version with every
+    # 32nd position dropped, and (where a block is read) the kernel with
+    # the first selected block marked not ok
+    if hot_len.max() > 1 or ok.any():
+        kk, vv, valid = KLA.tiered_inputs(hk, hv, hot_len, bk, bv, ids, ok)
+        valid[:, :, ::32] = 0
+        assert _fails(got, KLA.decode_attention_plain(q, kk, vv, valid,
+                                                      dh ** -0.5), dtype)
+    if ok[:, :, 0].any():
+        ok2 = ok.clone()
+        ok2[:, :, 0] = False
+        bad = KLA.lsm_decode_attention(q, hk, hv, hot_len, bk, bv, ids, ok2,
+                                       dh ** -0.5)
+        assert _fails(bad, want, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("group,dh,length", [(3, 128, 8208), (1, 64, 700),
+                                             (8, 256, 513), (4, 16, 33)])
+def test_dense_lengths_kernel_matches_plain(cuda, group, dh, length, dtype):
+    """The dense path: the kernel reads `lengths` itself (no bitmap);
+    rows past a row's length are NaN and must not be read."""
+    gen = torch.Generator(cuda).manual_seed(group + dh + length)
+    b, kv = 2, 2
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda).to(dtype)
+               for shape in ((b, group * kv, dh), (b, length, kv, dh),
+                             (b, length, kv, dh)))
+    lens = torch.tensor([max(1, length // 3), length], dtype=torch.int32,
+                        device=cuda)
+    k[0, int(lens[0]):] = float("nan")
+    v[0, int(lens[0]):] = float("nan")
+    before = KLA.decode_attention.launches
+    got = KLA.decode_attention_op(q, k, v, lens, dh ** -0.5)
+    torch.cuda.synchronize()
+    assert KLA.decode_attention.launches == before + 1
+    valid = (torch.arange(length, device=cuda)[None, :] < lens[:, None])
+    valid = valid[:, None, :].expand(b, kv, length).to(torch.int8)
+    want = KLA.decode_attention_plain(q, k, v, valid.contiguous(),
+                                      dh ** -0.5)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(),
+                               **_att_tol(want.float(), dtype))
+    # planted fault: the plain version with every 32nd position dropped
+    valid = valid.clone()
+    valid[:, :, ::32] = 0
+    assert _fails(got, KLA.decode_attention_plain(q, k, v, valid,
+                                                  dh ** -0.5), dtype)
 
 
 @pytest.mark.gpu

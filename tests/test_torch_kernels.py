@@ -159,6 +159,39 @@ def test_heap_merge_round_matches_pallas_on_all_lanes():
         _eq(g, w)
 
 
+@pytest.mark.parametrize("k", [2, 3, 5, 8, 20, 50])
+def test_kway_merge_plain_matches_tournament_on_all_lanes(k):
+    """The one-shot k-way order (a stable sort by (key, seq), ties to the
+    higher run, then by position) is the tournament's, lane for lane,
+    over partly filled runs whose (KEY_EMPTY, seq 0) padding ties across
+    runs — the source-index lane exposes that order."""
+    rng = np.random.default_rng(100 + k)
+    K, _, W, S = _runs(rng, k, 40, key_space=120)
+    flat = [_t(a.reshape(-1)) for a in (K, W, S)]
+    ix = torch.arange(k * 40, dtype=torch.int32)
+    want = THM.ops.tournament(*flat, ix, 40, k, THM.merge_round_plain)
+    got = THM.kway_merge(*flat, ix, k)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    run, pos = np.divmod(np.arange(k * 40), 40)
+    order = np.lexsort((pos, -run, S.reshape(-1), K.reshape(-1)))
+    _eq(got[3], order.astype(np.int32))
+
+
+@pytest.mark.parametrize("k,cap", [(20, 24), (50, 8)])
+def test_heap_merge_kway_many_runs_matches_pallas_and_ref(k, cap):
+    """The k-way path at the engine's run counts (a spill merges D = 20
+    runs, a flush 50) against the reference's tournament and jnp ref."""
+    rng = np.random.default_rng(k * cap)
+    lanes = _runs(rng, k, cap, key_space=2 * cap)
+    got = THM.heap_merge(*map(_t, lanes), True)
+    want_op = heap_merge_op(*map(jnp.asarray, lanes), True)
+    want_ref = heap_merge_ref(*map(jnp.asarray, lanes), True)
+    for g, a, b in zip(got, want_op, want_ref):
+        _eq(g, a)
+        _eq(g, b)
+
+
 # -- range_merge --------------------------------------------------------------
 
 def _segments(rng, q_n, c_n, n_seg, empty_every=3):

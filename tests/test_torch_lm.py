@@ -144,6 +144,55 @@ def test_select_blocks_and_tiered_op_match(group, dtype, n_blocks, topk):
     _close(got, want, **TOL[dtype])
 
 
+@pytest.mark.parametrize("group,dtype,n_blocks,topk", [
+    (2, "float32", (5, 1), 2),      # row 1 has fewer blocks than topk
+    (1, "bfloat16", (8, 3), 3),
+    (4, "float32", (0, 2), 2),      # row 0 has no cold block at all
+    (3, "bfloat16", (6, 6), 4),
+])
+def test_tiered_plain_never_reads_invalid_rows(group, dtype, n_blocks, topk):
+    """The tiered entry point's plain path (the one the model runs on the
+    CPU) with every row it must not read set to NaN — hot rows at or past
+    hot_len, blocks at or past n_blocks — against the reference on the
+    same cache with those rows finite: a finite output within the
+    tolerance, so no such row reached it."""
+    rng = np.random.default_rng(topk * 100 + group)
+    b, kv, dh, w, nb, mu = 2, 2, 16, 64, 8, 16
+    h = group * kv
+    hot_len = np.array([w, 9], np.int32)
+    nbk = np.array(n_blocks, np.int32)
+    arrs = dict(q=rng.normal(size=(b, h, dh)),
+                hk=rng.normal(size=(b, w, kv, dh)),
+                hv=rng.normal(size=(b, w, kv, dh)),
+                bk=rng.normal(size=(b, nb, mu, kv, dh)),
+                bv=rng.normal(size=(b, nb, mu, kv, dh)))
+    arrs["sm"] = arrs["bk"].mean(axis=2)
+    ref = {n: _pair(a, dtype)[0] for n, a in arrs.items()}
+    poisoned = {n: a.copy() for n, a in arrs.items()}
+    for r in range(b):
+        poisoned["hk"][r, hot_len[r]:] = np.nan
+        poisoned["hv"][r, hot_len[r]:] = np.nan
+        poisoned["bk"][r, nbk[r]:] = np.nan
+        poisoned["bv"][r, nbk[r]:] = np.nan
+    t = {n: _pair(a, dtype)[1] for n, a in poisoned.items()}
+    t["sm"] = _pair(arrs["sm"], dtype)[1]
+    ids, ok = TKO.select_blocks(t["q"], t["sm"], torch.from_numpy(nbk), topk)
+    got = TKO.lsm_decode_attention(t["q"], t["hk"], t["hv"],
+                                   torch.from_numpy(hot_len), t["bk"],
+                                   t["bv"], ids, ok, dh ** -0.5)
+    assert got.dtype == t["q"].dtype and torch.isfinite(got).all()
+    want = RKO.lsm_decode_attention_op(ref["q"], ref["hk"], ref["hv"],
+                                       jnp.asarray(hot_len), ref["bk"],
+                                       ref["bv"], ref["sm"],
+                                       jnp.asarray(nbk), topk, dh ** -0.5)
+    _close(got, want, **TOL[dtype])
+    op = TKO.lsm_decode_attention_op(t["q"], t["hk"], t["hv"],
+                                     torch.from_numpy(hot_len), t["bk"],
+                                     t["bv"], t["sm"], torch.from_numpy(nbk),
+                                     topk, dh ** -0.5)
+    assert torch.equal(op, got)
+
+
 # -- layers, prefill attention, configs ---------------------------------------
 
 def test_configs_match_reference():
