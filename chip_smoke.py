@@ -20,13 +20,23 @@ Phases, in order; any failure raises and exits non-zero:
              the level spill, 20 x 40,448) and at a level-1 spill
              (20 x 808,960, its samples searched in place): the k-way
              kernel beside the tournament of round launches it replaced,
-             each bitwise equal to the plain version.
+             each bitwise equal to the plain version. range_merge runs
+             at the scan rows of the main path (32 x 512 lanes, 91
+             segments: one launch) and at rows of 16,384 lanes (a split
+             and a merge launch), beside the rounds of the round kernel
+             it replaced, both bitwise equal to the plain version.
+             fence_lookup runs at level 1 (20 runs, 1,580 fences each,
+             staged whole) and at 4 runs of level_cap(2) (632,000
+             fences, ~5.2 GB of keys built on the card; every 64th fence
+             staged).
   main     — the engine at the paper's Table 1 baseline
              (`paper_params(merge_budget=1, range_cand=512)`) on the card:
              8M writes and 800K interleaved deletes, 1M lookups, 2048
              range scans, 2048 aggregates, every answer checked against a
-             numpy oracle; all four kernels must have launched; the
-             heap_merge launches counted by merge shape (flush, spill).
+             numpy oracle; all four kernels must have launched, and
+             range_merge once a scan or aggregate batch, no round kernel
+             (heap_merge's or range_merge's); the heap_merge launches
+             counted by merge shape (flush, spill).
   profile  — a short window of each main-path flow under torch.profiler:
              device time by kernel and the device-busy share.
   cascade  — the scaled geometry through deepest-level compactions with
@@ -87,6 +97,8 @@ LM_ARCH = "phi4-mini-3.8b"
 SERVE_PROMPT, SERVE_STEPS = 24_576, 32   # 23 cold blocks + 1,024 hot
 SERVE_HOT = 1_056               # hot tokens a serve step attends at first
 AGREE_PROMPT, AGREE_STEPS = 8_192, 8     # 7 cold blocks <= topk 16
+FENCE_DEEP_RUNS = 4             # runs of level_cap(2) in the deep fence case
+RANGE_WIDE = 16_384             # scan rows wider than one merge tile
 
 
 def log(*parts) -> None:
@@ -126,25 +138,57 @@ def device_us_by_name(prof):
     return by_name
 
 
-def device_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean device time of fn() over `iters` calls: the summed durations of
-    the kernels and copies torch.profiler traces on the card, so the host's
-    gaps between launches do not count."""
+def device_ms_by_name(fn, iters: int, warmup: int = 2) -> dict:
+    """Mean device time (ms) a call of fn() over `iters` calls, by kernel
+    or copy name, as torch.profiler traces them on the card. Every call
+    launches the same kernels, so each name should be traced a multiple
+    of `iters` times. In a long process the tracer drops events (1 to 3
+    of 20 to 50 calls, seen on an H100), which would read the time low:
+    a trace that is not whole is taken again, and if none of 3 is, each
+    name's time per traced event over the 3 is multiplied by its
+    launches a call — the most events a try traced over `iters`, rounded
+    up, since a trace only loses events — and the counts are logged."""
+    import collections
+
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    for _ in range(3):      # the tracer now and then delivers no events
+    us, events, most = (collections.Counter() for _ in range(3))
+    for _ in range(3):      # the tracer now and then drops events
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        us = sum(device_us_by_name(prof).values())
-        if us > 0:
-            return us / 1e3 / iters
-    raise AssertionError("the profiler traced no device time")
+        by_name = device_us_by_name(prof)
+        traced = collections.Counter(ev.name for ev in prof.events()
+                                     if ev.device_type == DeviceType.CUDA)
+        if traced and all(n % iters == 0 for n in traced.values()):
+            return {k: t / 1e3 / iters for k, t in by_name.items()}
+        us.update(by_name)
+        events.update(traced)
+        most |= traced
+    if not events:
+        raise AssertionError("the profiler traced no device time")
+    log(f"profiler: no whole trace of {iters} calls in 3 tries; the most "
+        "counted " + json.dumps({kernel_name(k): n for k, n in most.items()}))
+    return {k: us[k] / 1e3 / events[k] * -(-most[k] // iters) for k in us}
+
+
+def kernel_name(name: str) -> str:
+    """A traced kernel's function name without its signature."""
+    m = re.search(r"(\w+)[<(]", name)
+    return m.group(1) if m else name[:40]
+
+
+def device_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Mean device time of fn() over `iters` calls: the summed durations of
+    the kernels and copies torch.profiler traces on the card, so the host's
+    gaps between launches do not count."""
+    return sum(device_ms_by_name(fn, iters, warmup).values())
 
 
 def search_reads(rows, base, n: int, x, right: bool):
@@ -197,6 +241,151 @@ def sorted_runs(rng, d_n, cap, counts, key_bits=KEY_BITS):
     return keys
 
 
+def fence_case(name, keys, counts, qs, mu):
+    """fence_lookup against its plain version over (D, cap) runs with
+    their fences every mu keys: bitwise equality, device and wall times,
+    the plain version's and `torch.searchsorted`'s, and the byte bound
+    of the distinct fence and key words the two searches read."""
+    import torch
+    from repro_torch.kernels import fence_lookup as KFL
+    d_n, cap = keys.shape
+    q_n = qs.shape[0]
+    fences = keys[:, ::mu].contiguous()
+    f_n = fences.shape[1]
+    got = KFL.fence_lookup_many(qs, fences, keys, counts, mu)
+    torch.cuda.synchronize()
+    want = KFL.fence_lookup_plain(qs, fences, keys, counts, mu)
+    # bytes: queries, counts and outputs once, and each fence and key word
+    # once that the two searches of fence_lookup.cu read for this data
+    qs_d = qs.expand(d_n, -1).contiguous()
+    zero = torch.zeros(qs_d.shape, dtype=torch.int64, device=keys.device)
+    f, fence_reads = search_reads(fences, zero, f_n, qs_d, right=True)
+    start = ((f - 1).clamp(0, f_n - 1) * mu).clamp(max=cap - mu)
+    off, key_reads = search_reads(keys, start, mu, qs_d, right=False)
+    idx = start + off.clamp(max=mu - 1)
+    hit = ((off < mu) & (keys.gather(1, idx) == qs_d)
+           & (idx < counts[:, None]))
+    if not torch.equal(torch.where(hit, idx, -1).int(), want):
+        raise AssertionError("fence_lookup: the byte count's search "
+                             "disagrees with the kernel")
+    last = idx + torch.arange(d_n, device=keys.device)[:, None] * cap
+    fence_words = int(torch.unique(fence_reads).numel())
+    key_words = int(torch.unique(torch.cat([key_reads,
+                                            last.reshape(-1)])).numel())
+    group, staged = KFL.ops.fence_geometry(f_n)
+
+    def lookup():
+        return KFL.fence_lookup_many(qs, fences, keys, counts, mu)
+
+    rec = dict(
+        case=name, shape=f"D={d_n} F={f_n} cap={cap} mu={mu} Q={q_n}",
+        fences_staged=f"every {group}: {staged} of {f_n}",
+        hits=int(hit.sum()),
+        bytes_counted=(f"{fence_words} distinct fence words, {key_words} "
+                       "distinct key words"),
+        max_abs_err=max_abs_err(got, want),
+        ms=device_ms(lookup, 50), wall_ms=wall_ms(lookup, 50),
+        plain_ms=device_ms(lambda: KFL.fence_lookup_plain(
+            qs, fences, keys, counts, mu), 5),
+        bound_ms=bound_ms(q_n * 4 + d_n * 4 + d_n * q_n * 4
+                          + (fence_words + key_words) * 4),
+        library_ms=device_ms(lambda: torch.searchsorted(keys, qs_d), 20))
+    log(f"fence_lookup {json.dumps(rec)}")
+    if rec["max_abs_err"]:
+        raise AssertionError(f"fence_lookup ({name}) differs from its plain "
+                             "version")
+    return rec
+
+
+def scan_rows(rng, q_n: int, c_n: int, n_seg: int):
+    """Q candidate rows of c_n lanes, each filled to a random width of
+    c_n / 4 to c_n lanes in n_seg sorted segments (unique seqs, mixed
+    weights), KEY_EMPTY past the fill: (keys, vals, wts, seqs, offsets)
+    as numpy int32."""
+    from repro_torch.core.params import KEY_EMPTY
+    k = np.full((q_n, c_n), KEY_EMPTY, np.int32)
+    s = np.zeros((q_n, c_n), np.int32)
+    w = np.zeros((q_n, c_n), np.int32)
+    off = np.zeros((q_n, n_seg + 1), np.int32)
+    for q in range(q_n):
+        sizes = rng.multinomial(int(rng.integers(c_n // 4, c_n + 1)),
+                                np.ones(n_seg) / n_seg)
+        pos = 0
+        for i, size in enumerate(sizes):
+            k[q, pos:pos + size] = np.sort(rng.choice(
+                max(256, 4 * size), size, replace=False))
+            pos += size
+            off[q, i + 1] = pos
+        s[q, :pos] = rng.permutation(c_n * 8)[:pos]
+        w[q, :pos] = rng.choice([-1, 1], pos)
+    v = rng.integers(-2 ** 31, 2 ** 31 - 1, (q_n, c_n), dtype=np.int32)
+    return k, v, w, s, off
+
+
+def range_case(name, rng, device, q_n, c_n, n_seg):
+    """range_merge over Q rows of c_n lanes in n_seg segments, filled to
+    a random width: the one-pass kernel and the rounds of the round
+    kernel, each against the plain version on all five lanes; device and
+    wall times, launches a call, and the byte bound (each filled lane
+    read once, every lane written once)."""
+    import torch
+    from repro_torch.core import runs as RU
+    from repro_torch.kernels import range_merge as KRM
+    rows = scan_rows(rng, q_n, c_n, n_seg)
+    off = rows[-1]
+    lanes = [torch.from_numpy(a).to(device) for a in rows]
+    counters = (KRM.range_merge, KRM.merge_round)
+
+    def kernel():
+        return KRM.range_merge(*lanes, True)
+
+    def rounds():
+        return KRM.ops.range_merge_rounds(*lanes, True)
+
+    n0 = [c.launches for c in counters]
+    got = kernel()
+    n1 = [c.launches for c in counters]
+    old = rounds()
+    n2 = [c.launches for c in counters]
+    torch.cuda.synchronize()
+    want = KRM.range_merge_plain(*lanes, True)
+    comp = RU.composite(lanes[0], lanes[3])
+    filled = int(off[:, -1].sum())
+    geo = KRM.ops.range_geometry(c_n, n_seg)
+    rec = dict(
+        case=name, shape=f"Q={q_n} C={c_n} P={n_seg}",
+        tiles=("one a row" if not geo[1] else
+               f"<= {geo[3]} a row of <= {geo[0]} lanes (S={geo[1]}, "
+               f"G={geo[2]}, samples in shared memory: {geo[4]})"),
+        launches_a_call=n1[0] - n0[0],
+        merge_round_launches_a_call=n1[1] - n0[1],
+        rounds=n2[1] - n1[1],
+        bytes_counted=(f"{filled} filled lanes of {q_n * c_n} read, the "
+                       "offsets, every lane written"),
+        max_abs_err=max_abs_err(got, want),
+        rounds_max_abs_err=max_abs_err(old, want),
+        ms_by_kernel=device_ms_by_name(kernel, 50),
+        wall_ms=wall_ms(kernel, 50),
+        rounds_ms=device_ms(rounds, 20), rounds_wall_ms=wall_ms(rounds, 20),
+        plain_ms=device_ms(lambda: KRM.range_merge_plain(*lanes, True), 10),
+        bound_ms=bound_ms(filled * 16 + off.size * 4 + q_n * c_n * 17),
+        library_ms=device_ms(lambda: torch.sort(comp, dim=1, stable=True),
+                             50))
+    rec["ms"] = sum(rec["ms_by_kernel"].values())
+    rec["ms_by_kernel"] = {kernel_name(k): v
+                           for k, v in rec["ms_by_kernel"].items()}
+    log(f"range_merge {json.dumps(rec)}")
+    if rec["max_abs_err"] or rec["rounds_max_abs_err"]:
+        raise AssertionError(f"range_merge ({name}): the kernel or the "
+                             "rounds differ from the plain version")
+    if rec["merge_round_launches_a_call"] or rec["launches_a_call"] != (
+            1 if not geo[1] else 2):
+        raise AssertionError(f"range_merge ({name}): launched "
+                             f"{rec['launches_a_call']} kernels and "
+                             f"{rec['merge_round_launches_a_call']} rounds")
+    return rec
+
+
 def kernel_phase(p, device, rng):
     """Each kernel against its plain version at main-path shapes."""
     import torch
@@ -204,9 +393,7 @@ def kernel_phase(p, device, rng):
     from repro_torch.core import runs as RU
     from repro_torch.core.params import KEY_EMPTY
     from repro_torch.kernels import bloom_probe as KBP
-    from repro_torch.kernels import fence_lookup as KFL
     from repro_torch.kernels import heap_merge as KHM
-    from repro_torch.kernels import range_merge as KRM
 
     def dev(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
@@ -260,46 +447,30 @@ def kernel_phase(p, device, rng):
         bound_ms=bound_ms(q_n * 4 + p.D * q_n + bloom_words * 4),
         library_ms=None))
 
-    # -- fence_lookup: level-1 fences over the same runs
-    f_n = p.n_fences(1)
-    fences = keys1_t[:, ::p.mu].contiguous()
-    got = KFL.fence_lookup_many(qs_t, fences, keys1_t, counts_t, p.mu)
-    torch.cuda.synchronize()
-    want = KFL.fence_lookup_plain(qs_t, fences, keys1_t, counts_t, p.mu)
-    # bytes: queries, counts and outputs once, and each fence and key word
-    # once that the two searches of fence_lookup.cu read for this data
-    qs_d = qs_t.expand(p.D, -1).contiguous()
-    zero = torch.zeros(qs_d.shape, dtype=torch.int64, device=device)
-    f, fence_reads = search_reads(fences, zero, f_n, qs_d, right=True)
-    start = ((f - 1).clamp(0, f_n - 1) * p.mu).clamp(max=cap1 - p.mu)
-    off, key_reads = search_reads(keys1_t, start, p.mu, qs_d, right=False)
-    idx = start + off.clamp(max=p.mu - 1)
-    hit = ((off < p.mu) & (keys1_t.gather(1, idx) == qs_d)
-           & (idx < counts_t[:, None]))
-    if not torch.equal(torch.where(hit, idx, -1).int(), want):
-        raise AssertionError("fence_lookup: the byte count's search "
-                             "disagrees with the kernel")
-    last = idx + torch.arange(p.D, device=device)[:, None] * cap1
-    fence_words = int(torch.unique(fence_reads).numel())
-    key_words = int(torch.unique(torch.cat([key_reads,
-                                            last.reshape(-1)])).numel())
-
-    def lookup():
-        return KFL.fence_lookup_many(qs_t, fences, keys1_t, counts_t, p.mu)
-
+    # -- fence_lookup: level-1 fences over the same runs (the main path),
+    # and a deployment whose level 2 is filled: runs of level_cap(2)
+    # whose fences miss shared memory (every G-th fence staged)
+    cases = [fence_case("level 1", keys1_t, counts_t, qs_t, p.mu)]
+    cap2 = p.level_cap(2)
+    gaps = torch.randint(1, 7, (FENCE_DEEP_RUNS, cap2), dtype=torch.int32,
+                         device=device)
+    keys2 = torch.cumsum(gaps, dim=1, dtype=torch.int32)  # sorted: gaps >= 1
+    del gaps
+    counts2 = torch.tensor([cap2, cap2 - cap2 // 7] * (FENCE_DEEP_RUNS // 2),
+                           dtype=torch.int32, device=device)
+    keys2[1::2, cap2 - cap2 // 7:] = KEY_EMPTY
+    qs2 = torch.cat([keys2[dev(rng.integers(0, FENCE_DEEP_RUNS, q_n // 2)),
+                           dev(rng.integers(0, cap2 - cap2 // 7, q_n // 2))],
+                     dev(rng.integers(0, 3 * cap2 + 1, q_n - q_n // 2,
+                                      dtype=np.int32))])
+    cases.append(fence_case("level 2", keys2, counts2, qs2, p.mu))
+    del keys2, counts2, qs2
+    torch.cuda.empty_cache()
     out.append(dict(
-        name="fence_lookup", source="src/repro_torch/csrc/fence_lookup.cu",
+        cases[0], name="fence_lookup",
+        source="src/repro_torch/csrc/fence_lookup.cu",
         replaces="src/repro/kernels/fence_lookup/fence_lookup.py:31",
-        shape=f"D={p.D} F={f_n} cap={cap1} mu={p.mu} Q={q_n}",
-        bytes_counted=(f"{fence_words} distinct fence words, {key_words} "
-                       "distinct key words"),
-        max_abs_err=max_abs_err(got, want),
-        ms=device_ms(lookup, 50), wall_ms=wall_ms(lookup, 50),
-        plain_ms=device_ms(lambda: KFL.fence_lookup_plain(
-            qs_t, fences, keys1_t, counts_t, p.mu), 5),
-        bound_ms=bound_ms(q_n * 4 + p.D * 4 + p.D * q_n * 4
-                          + (fence_words + key_words) * 4),
-        library_ms=device_ms(lambda: torch.searchsorted(keys1_t, qs_d), 20)))
+        cases=cases[1:]))
 
     # -- heap_merge: where it launches on the main path — the buffer
     # flush (runs_merged memory runs of Rn lanes) and the level-0 ->
@@ -364,48 +535,19 @@ def kernel_phase(p, device, rng):
         cases=cases[1:]))
 
     # -- range_merge: Q scans x range_cand lanes of P = 1 + R + 2D parts
-    q_s, c_n, n_seg = SCAN_BATCH, p.range_cand_eff(2), 1 + p.R + 2 * p.D
-    k_r = np.full((q_s, c_n), KEY_EMPTY, np.int32)
-    s_r = np.zeros((q_s, c_n), np.int32)
-    w_r = np.zeros((q_s, c_n), np.int32)
-    off = np.zeros((q_s, n_seg + 1), np.int32)
-    for q in range(q_s):
-        sizes = rng.multinomial(int(rng.integers(c_n // 4, c_n + 1)),
-                                np.ones(n_seg) / n_seg)
-        pos = 0
-        for i, size in enumerate(sizes):
-            k_r[q, pos:pos + size] = np.sort(rng.choice(256, size,
-                                                        replace=False))
-            pos += size
-            off[q, i + 1] = pos
-        s_r[q, :pos] = rng.permutation(c_n * 8)[:pos]
-        w_r[q, :pos] = rng.choice([-1, 1], pos)
-    s0 = 1 << (n_seg - 1).bit_length()
-    off = np.concatenate([off, np.repeat(off[:, -1:], s0 - n_seg, 1)], 1)
-    rl = [dev(a) for a in (k_r, w_r, s_r)]
-    rix = torch.arange(c_n, dtype=torch.int32,
-                       device=device).expand(q_s, -1).contiguous()
-    off_t = dev(off)
-
-    def scan(round_fn=None):
-        return KRM.ops.tournament(*rl, rix, off_t, True, round_fn)
-
-    got = scan()
-    torch.cuda.synchronize()
-    want = scan(KRM.merge_round_plain)
-    rcomp = RU.composite(rl[0], rl[2])
+    # (the main path: a row is one tile), and the same scans over rows of
+    # 16,384 lanes (a larger range_cand; tiles bounded by a split launch):
+    # the one-pass kernel beside the rounds of the round kernel it
+    # replaces, each against the plain version on all five lanes
+    n_seg = 1 + p.R + 2 * p.D
+    cases = [range_case(name, rng, device, SCAN_BATCH, c_n, n_seg)
+             for name, c_n in (("main", p.range_cand_eff(2)),
+                               ("wide", RANGE_WIDE))]
     out.append(dict(
-        name="range_merge", source="src/repro_torch/csrc/range_merge.cu",
+        cases[0], name="range_merge",
+        source="src/repro_torch/csrc/range_merge.cu",
         replaces="src/repro/kernels/range_merge/range_merge.py:98",
-        shape=f"Q={q_s} C={c_n} P={n_seg}->{s0}, "
-              f"{int(math.log2(s0))} rounds",
-        max_abs_err=max_abs_err(got, want),
-        ms=device_ms(scan, 50), wall_ms=wall_ms(scan, 50),
-        plain_ms=device_ms(lambda: scan(KRM.merge_round_plain), 10),
-        bound_ms=bound_ms(q_s * c_n * 16 + off.size * 4
-                          + q_s * c_n * 17),
-        library_ms=device_ms(lambda: torch.sort(rcomp, dim=1, stable=True),
-                             50)))
+        cases=cases[1:]))
     for rec in out:
         rec.update(route="cuda", bound_by="bytes",
                    bitwise_equal=rec["max_abs_err"] == 0)
@@ -1228,23 +1370,32 @@ def main() -> int:
     counters = {"bloom_probe": KBP.bloom_probe_many,
                 "fence_lookup": KFL.fence_lookup_many,
                 "heap_merge": KHM.kway_merge,
-                "range_merge": KRM.merge_round,
+                "range_merge": KRM.range_merge,
                 "lsm_attention": KLA.decode_attention}
-    for fn in counters.values():
+    # the round kernels, kept as the reference contract, must not run
+    contract = {"heap_merge rounds": KHM.merge_round,
+                "range_merge rounds": KRM.merge_round}
+    for fn in (*counters.values(), *contract.values()):
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
     merges = {}
     with merge_tally(merges, KHM.kway_merge):
         eng, main = main_phase(device, args.seed, args.writes)
     launches = {k: fn.launches for k, fn in counters.items()}
+    rounds = {k: fn.launches for k, fn in contract.items()}
     main["heap_merge_by_shape"] = merges
     main["max_memory_allocated"] = torch.cuda.max_memory_allocated()
     log(f"main [{card}]: " + json.dumps(main))
-    log(f"main launches: {launches}")
+    log(f"main launches: {launches} contract rounds: {rounds}")
     missing = [k for k, n in launches.items()
                if n == 0 and k != "lsm_attention"]
     if missing:
         raise AssertionError(f"main path never launched: {missing}")
+    batches = 2 * main["scans"] // SCAN_BATCH   # scans, then aggregates
+    if any(rounds.values()) or launches["range_merge"] != batches:
+        raise AssertionError(f"main path: range_merge launched "
+                             f"{launches['range_merge']} times for "
+                             f"{batches} batches, rounds {rounds}")
     for flow, rec in profile_phase(eng, args.seed).items():
         log(f"profile {flow} [{card}]: " + json.dumps(rec))
     del eng

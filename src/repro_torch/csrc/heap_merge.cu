@@ -24,10 +24,11 @@
 //    its counts. (2) `kway_merge_kernel`: one CTA per tile first turns
 //    its two boundaries' sample counts into lane counts (a search of S
 //    lanes per run, a thread each), then loads its k sub-ranges (fewer
-//    than S * (G + k) lanes in all) into shared memory, merges them
-//    there in log2(k) rounds of pairwise merge-path merges (each thread
-//    an equal run of outputs: one diagonal search, then a sequential
-//    merge), and writes the tile once at its output rank.
+//    than S * (G + k) lanes in all) into shared memory as 16-byte
+//    records, merges them there in log2(k) rounds of pairwise merge-path
+//    merges (`slsm::merge_in_shared`: each thread an equal run of
+//    outputs, one diagonal search, then a sequential merge), and writes
+//    the tile once at its output rank.
 //
 // Bound: bytes — 16 bytes read and 16 written per lane. The k-way form
 // adds the samples (every split CTA copies all k * cap / S of them from
@@ -63,23 +64,6 @@ __global__ void merge_round_kernel(
   oix[lo + t] = ix[src];
 }
 
-// First index i in [0, n) of the sorted (key, seq) pairs at rk, rs
-// (probed at i * stride) that is not before x (upper: that is after x).
-template <typename K, typename S>
-__device__ __forceinline__ int rank_in(const K* rk, const S* rs, int n,
-                                       int32_t xk, int32_t xs, bool upper,
-                                       int stride = 1) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    const int64_t at = static_cast<int64_t>(mid) * stride;
-    const bool go = upper ? !slsm::before(xk, xs, rk[at], rs[at])
-                          : slsm::before(rk[at], rs[at], xk, xs);
-    if (go) lo = mid + 1; else hi = mid;
-  }
-  return lo;
-}
-
 constexpr int kSplitThreads = 1024;
 constexpr int kBatch = 8;                 // loads a thread keeps in flight
 
@@ -101,7 +85,7 @@ __device__ __forceinline__ int lanes_before(
   const int lo = (c - 1) * step + 1;
   const int hi = c * step < cap ? c * step : cap;
   const int64_t off = static_cast<int64_t>(rr) * cap + lo;
-  return lo + rank_in(k + off, s + off, hi - lo, xk, xs, rr > r);
+  return lo + slsm::rank_in(k + off, s + off, hi - lo, xk, xs, rr > r);
 }
 
 // Samples are every S-th lane of every run. With kShared a CTA first
@@ -167,10 +151,10 @@ kway_split_kernel(const int32_t* __restrict__ k, const int32_t* __restrict__ s,
     auto count = [&](int rr) {
       if (rr == r) return m;
       if constexpr (kShared)
-        return rank_in(sk + rr * pitch, ss + rr * pitch, per_run, xk, xs,
-                       rr > r);
+        return slsm::rank_in(sk + rr * pitch, ss + rr * pitch, per_run, xk,
+                             xs, rr > r);
       const int64_t at = static_cast<int64_t>(rr) * cap;
-      return rank_in(k + at, s + at, per_run, xk, xs, rr > r, step);
+      return slsm::rank_in(k + at, s + at, per_run, xk, xs, rr > r, step);
     };
     int srank = 0;
     for (int rr = lane; rr < n_runs; rr += 32) srank += count(rr);
@@ -185,33 +169,13 @@ kway_split_kernel(const int32_t* __restrict__ k, const int32_t* __restrict__ s,
   }
 }
 
-// Merge-path split in shared memory: how many of a[0, n) are among the
-// first t outputs of merging a with b[0, m), ties going to b.
-__device__ __forceinline__ int path_split(const int32_t* ak,
-                                          const int32_t* as, int n,
-                                          const int32_t* bk,
-                                          const int32_t* bs, int m, int t) {
-  int lo = t - m > 0 ? t - m : 0;
-  int hi = t < n ? t : n;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    const int bj = t - mid - 1;
-    if (slsm::before(ak[mid], as[mid], bk[bj], bs[bj])) lo = mid + 1;
-    else hi = mid;
-  }
-  return lo;
-}
-
 // One CTA per tile j, between boundary samples who[j] and who[j + 1]
 // (the last tile ends at cap): a thread per (boundary, run) turns the
 // boundary's sample counts into lane counts, a search of S lanes; the
 // CTA loads those lanes of every run, merges them in shared memory and
 // writes them at the output rank of its first boundary (the sum of its
-// lane counts). Shared memory: two buffers of 4 lanes x `tile`.
-// A round merges segments 2i and 2i+1 (ties to 2i+1; an odd last
-// segment is copied): each thread takes an equal run of output
-// positions, finds where it starts by one merge-path search, and merges
-// sequentially from there.
+// lane counts). Shared memory: two buffers of `tile` 16-byte records
+// (key, seq, weight, index); the merge is `slsm::merge_in_shared`.
 template <int kThreads>
 __global__ void __launch_bounds__(kThreads)
 kway_merge_kernel(const int32_t* __restrict__ k,
@@ -223,9 +187,7 @@ kway_merge_kernel(const int32_t* __restrict__ k,
                   int32_t* __restrict__ ow, int32_t* __restrict__ os,
                   int32_t* __restrict__ oix, int n_runs, int cap, int tile,
                   int step, int per_run) {
-  extern __shared__ int32_t smem[];
-  // buffer b of the two starts at smem + b * 4 * tile (no pointer array:
-  // one indexed at run time would live in local memory)
+  extern __shared__ int32_t smem[];         // two buffers of tile records
   int32_t* lo = smem + 8 * tile;            // (n_runs,) first lane taken
   int32_t* hi = lo + n_runs;                // (n_runs,) last lane + 1
   int32_t* bnd = hi + n_runs;               // (n_runs + 1,) run bounds
@@ -280,60 +242,25 @@ kway_merge_kernel(const int32_t* __restrict__ k,
         for (int l = 0; l < 4; ++l) v[u][l] = src[l][at];
       }
     }
+    int4* rec = reinterpret_cast<int4*>(smem);
 #pragma unroll
     for (int u = 0; u < kBatch; ++u) {
       const int p = p0 + u * blockDim.x;
-      if (p < total)
-#pragma unroll
-        for (int l = 0; l < 4; ++l) smem[l * tile + p] = v[u][l];
+      if (p < total) rec[p] = make_int4(v[u][0], v[u][2], v[u][1], v[u][3]);
     }
   }
   __syncthreads();
-  // round t merges segments of 2^t runs: segment g spans runs
-  // [g * 2^t, (g + 1) * 2^t), so its bounds are bnd[min(g << t, n_runs)]
-  int cur = 0;
-  const int per = (total + blockDim.x - 1) / blockDim.x;
-  for (int t = 0, n = n_runs; n > 1; ++t, n = (n + 1) >> 1) {
-    auto edge = [&](int g) {
-      return bnd[(g << t) < n_runs ? g << t : n_runs];
-    };
-    const int32_t* from_buf = smem + cur * 4 * tile;
-    int32_t* to_buf = smem + (cur ^ 1) * 4 * tile;
-    const int32_t* ck = from_buf;
-    const int32_t* cs = from_buf + 2 * tile;
-    int p = threadIdx.x * per;
-    const int end = p + per < total ? p + per : total;
-    while (p < end) {
-      int a = 0, b = n;                     // segment a holds p
-      while (b - a > 1) {
-        const int mid = (a + b) >> 1;
-        if (edge(mid) <= p) a = mid; else b = mid;
-      }
-      const int pa = a & ~1, x0 = edge(pa), x1 = edge(pa + 1),
-                x2 = edge(pa + 2);
-      const int na = x1 - x0, nb = x2 - x1;
-      const int stop = end < x2 ? end : x2;
-      int ia = path_split(ck + x0, cs + x0, na, ck + x1, cs + x1, nb, p - x0);
-      int ib = p - x0 - ia;
-      for (; p < stop; ++p) {
-        const bool take_a =
-            ib >= nb || (ia < na && slsm::before(ck[x0 + ia], cs[x0 + ia],
-                                                 ck[x1 + ib], cs[x1 + ib]));
-        const int from = take_a ? x0 + ia++ : x1 + ib++;
-#pragma unroll
-        for (int l = 0; l < 4; ++l)
-          to_buf[l * tile + p] = from_buf[l * tile + from];
-      }
-    }
-    __syncthreads();
-    cur ^= 1;
-  }
+  int4* buf = reinterpret_cast<int4*>(smem);
+  const int4* out = buf + slsm::merge_in_shared(buf, tile, bnd, n_runs,
+                                                total) * tile;
   const int64_t o = base;
-  const int32_t* out_buf = smem + cur * 4 * tile;
-  int32_t* dst[4] = {ok, ow, os, oix};
-  for (int p = threadIdx.x; p < total; p += blockDim.x)
-#pragma unroll
-    for (int l = 0; l < 4; ++l) dst[l][o + p] = out_buf[l * tile + p];
+  for (int p = threadIdx.x; p < total; p += blockDim.x) {
+    const int4 r = out[p];                  // (key, seq, weight, index)
+    ok[o + p] = r.x;
+    os[o + p] = r.y;
+    ow[o + p] = r.z;
+    oix[o + p] = r.w;
+  }
 }
 
 template <int kThreads>

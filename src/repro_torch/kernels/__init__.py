@@ -8,7 +8,7 @@ tensors:
   bloom_probe  — Bloom membership over a level's D filters (paper 2.3)
   fence_lookup — fence-pointer page search over a level's D runs (2.4)
   heap_merge   — the k-way run merge, and one tournament round (2.5)
-  range_merge  — one round of the range scan's segment merge-dedup (2.9)
+  range_merge  — the range scan's per-row segment merge-dedup (2.9)
   lsm_attention — single-token GQA decode attention over the sLSM-tiered
                  (or dense) KV cache, for the LM serving path
 

@@ -2,7 +2,10 @@
 
 The wrapper `fence_lookup_many` launches `csrc/fence_lookup.cu` for CUDA
 tensors and runs `fence_lookup_plain` for CPU tensors. It counts its
-launches in `fence_lookup_many.launches`.
+launches in `fence_lookup_many.launches`. The kernel searches every
+(run, query) pair with the run's fences staged in shared memory: all of
+them where FENCE_SMEM_BYTES holds them, else every G-th
+(`fence_geometry`).
 """
 from __future__ import annotations
 
@@ -44,6 +47,20 @@ def fence_lookup_plain(qs, fences, keys, counts, mu: int) -> torch.Tensor:
     return torch.where(hit, start + offc, -1).to(torch.int32)
 
 
+FENCE_SMEM_BYTES = 48 * 1024   # a run's fences a CTA stages
+
+
+def fence_geometry(f_n: int) -> tuple[int, int]:
+    """(group G, staged) of the kernel for runs of `f_n` fences: every
+    G-th fence is staged in shared memory, `staged` = ceil(F / G) of
+    them, G the least power of two whose staged fences fit
+    FENCE_SMEM_BYTES. The search then takes log2(G) steps in L2."""
+    group = 1
+    while 4 * -(-f_n // group) > FENCE_SMEM_BYTES:
+        group *= 2
+    return group, -(-f_n // group)
+
+
 def fence_lookup_many(qs, fences, keys, counts, mu: int) -> torch.Tensor:
     """qs (Q,), fences (D, F), keys (D, cap), counts (D,), page width mu
     -> (D, Q) int32 hit indices, -1 for misses."""
@@ -66,11 +83,15 @@ def fence_lookup_many(qs, fences, keys, counts, mu: int) -> torch.Tensor:
     if not (f_n >= 1 and f_n * mu >= cap >= mu):
         raise ValueError("fence_lookup: fences must cover the run")
     q_n = qs.shape[0]
+    if d_n > 65535:
+        raise ValueError(f"fence_lookup: at most 65,535 runs, not {d_n}")
     out = torch.empty((d_n, q_n), dtype=torch.int32, device=dev)
-    fn = _build.bind("fence_lookup", "fence_lookup_launch", 5, 5)
+    group, staged = fence_geometry(f_n)
+    fn = _build.bind("fence_lookup", "fence_lookup_launch", 5, 7)
     _build.check(fn(qs.data_ptr(), fences.data_ptr(), keys.data_ptr(),
                     counts.data_ptr(), out.data_ptr(), d_n, q_n, f_n, cap,
-                    mu, torch.cuda.current_stream(dev).cuda_stream),
+                    mu, group, staged,
+                    torch.cuda.current_stream(dev).cuda_stream),
                  "fence_lookup")
     fence_lookup_many.launches += 1
     return out

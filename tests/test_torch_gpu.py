@@ -62,17 +62,27 @@ def test_bloom_probe_kernel_matches_plain(cuda, bits):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("fence_bytes", [None, 64])
 @pytest.mark.parametrize("stride", [1, 2, 4])
-def test_fence_lookup_kernel_matches_plain(cuda, stride):
-    """Stride views over 1000-slot runs leave partial last pages."""
+def test_fence_lookup_kernel_matches_plain(cuda, monkeypatch, stride,
+                                           fence_bytes):
+    """Stride views over 1000-slot runs leave partial last pages; with a
+    64-byte fence budget a CTA stages every G-th fence (G = 8, 4, 2) and
+    finishes the search in L2."""
     rng = np.random.default_rng(stride)
     keys, counts = _sorted_runs(rng, 5, 1000, 1 << 20)
     fences = np.ascontiguousarray(keys[:, ::8][:, ::stride])
+    if fence_bytes:
+        monkeypatch.setattr(KFL.ops, "FENCE_SMEM_BYTES", fence_bytes)
+    assert (KFL.ops.fence_geometry(fences.shape[1])[0] > 1) == bool(
+        fence_bytes)
     qs = np.concatenate([keys[0, :1000], rng.integers(-2 ** 19, 2 ** 19,
                                                       1000)]).astype(np.int32)
     args = [_t(a, cuda) for a in (qs, fences, keys, counts)]
+    before = KFL.fence_lookup_many.launches
     got = KFL.fence_lookup_many(*args, 8 * stride)
     torch.cuda.synchronize()
+    assert KFL.fence_lookup_many.launches == before + 1
     assert torch.equal(got, KFL.fence_lookup_plain(*args, 8 * stride))
     assert (got[0, :1000] >= 0).all()
 
@@ -149,11 +159,10 @@ def test_kway_merge_in_place_split_matches_plain(cuda, monkeypatch, k, cap,
         assert torch.equal(g, w)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("n_seg", [2, 3, 91])
-def test_range_merge_kernel_matches_plain(cuda, n_seg):
-    rng = np.random.default_rng(n_seg)
-    q_n, c_n = 8, 512
+def _scan_rows(rng, q_n, c_n, n_seg):
+    """(Q, C) candidate rows of n_seg sorted segments at offsets, filled
+    to a random width, the odd segments ending in KEY_EMPTY lanes (a
+    budget cut), payloads distinct."""
     K = np.full((q_n, c_n), KEY_EMPTY, np.int32)
     W = np.zeros((q_n, c_n), np.int32)
     S = np.zeros((q_n, c_n), np.int32)
@@ -163,18 +172,70 @@ def test_range_merge_kernel_matches_plain(cuda, n_seg):
                                 np.ones(n_seg) / n_seg)
         pos = 0
         for i, size in enumerate(sizes):
-            K[q, pos:pos + size] = np.sort(rng.choice(1000, size,
+            K[q, pos:pos + size] = np.sort(rng.choice(2 * c_n, size,
                                                       replace=False))
+            if size > 2 and i % 2:
+                K[q, pos + size - 2:pos + size] = KEY_EMPTY
             pos += size
             off[q, i + 1] = pos
-        S[q, :pos] = rng.permutation(c_n * 4)[:pos]
-        W[q, :pos] = rng.choice([-1, 1], pos)
-    V = rng.integers(I32.min, I32.max, (q_n, c_n)).astype(np.int32)
-    got = KRM.range_merge(*(_t(a, cuda) for a in (K, V, W, S, off)), True)
+        S[q, :pos] = np.where(K[q, :pos] == KEY_EMPTY, 0,
+                              rng.permutation(c_n * 4)[:pos])
+        W[q, :pos] = np.where(K[q, :pos] == KEY_EMPTY, 0,
+                              rng.choice([-1, 1], pos))
+    V = (rng.permutation(q_n * c_n).reshape(q_n, c_n) + 1).astype(np.int32)
+    return K, V, W, S, off
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_seg", [2, 3, 91, 128])
+@pytest.mark.parametrize("c_n", [512, 4096, 16_384])
+def test_range_merge_kernel_matches_plain(cuda, c_n, n_seg):
+    """The one-pass merge on all five lanes: one launch where a row is
+    one tile (C = 512), a split and a merge launch for wider rows, and
+    never the round kernel."""
+    rng = np.random.default_rng(c_n + n_seg)
+    lanes = [_t(a, cuda) for a in _scan_rows(rng, 8, c_n, n_seg)]
+    for drop in (False, True):
+        before = (KRM.range_merge.launches, KRM.merge_round.launches)
+        got = KRM.range_merge(*lanes, drop)
+        torch.cuda.synchronize()
+        assert KRM.range_merge.launches == before[0] + (
+            1 if c_n <= 512 else 2)
+        assert KRM.merge_round.launches == before[1]
+        want = KRM.range_merge_plain(*lanes, drop)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_seg", [3, 91])
+def test_range_merge_in_place_split_matches_plain(cuda, monkeypatch, n_seg):
+    """Rows whose samples miss a split CTA's shared memory (made so with
+    a small sample budget) are ranked in place: still two launches."""
+    rng = np.random.default_rng(7 + n_seg)
+    lanes = [_t(a, cuda) for a in _scan_rows(rng, 4, 8192, n_seg)]
+    monkeypatch.setattr(KRM.ops, "RANGE_SAMPLE_BYTES", 64)
+    assert not KRM.ops.range_geometry(8192, n_seg)[4]
+    before = KRM.range_merge.launches
+    got = KRM.range_merge(*lanes, True)
     torch.cuda.synchronize()
-    want = KRM.range_merge(*(_t(a) for a in (K, V, W, S, off)), True)
-    for g, w in zip(got, want):
-        assert torch.equal(g.cpu(), w)
+    assert KRM.range_merge.launches == before + 2
+    for g, w in zip(got, KRM.range_merge_plain(*lanes, True)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_seg", [2, 3, 91])
+def test_range_merge_rounds_kernel_matches_plain(cuda, n_seg):
+    """The round kernel (the reference's contract) on every lane of every
+    round, and its whole merge against the plain one-sort version."""
+    rng = np.random.default_rng(n_seg)
+    lanes = [_t(a, cuda) for a in _scan_rows(rng, 8, 512, n_seg)]
+    got = KRM.ops.range_merge_rounds(*lanes, True)
+    torch.cuda.synchronize()
+    want = KRM.ops.range_merge_rounds(*lanes, True, KRM.merge_round_plain)
+    for g, w, p in zip(got, want, KRM.range_merge_plain(*lanes, True)):
+        assert torch.equal(g, w) and torch.equal(g, p)
 
 
 # tolerances of the kernel against its plain version: both sum in f32 (in

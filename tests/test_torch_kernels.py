@@ -194,7 +194,7 @@ def test_heap_merge_kway_many_runs_matches_pallas_and_ref(k, cap):
 
 # -- range_merge --------------------------------------------------------------
 
-def _segments(rng, q_n, c_n, n_seg, empty_every=3):
+def _segments(rng, q_n, c_n, n_seg, empty_every=3, key_space=2000):
     """(Q, C) rows of n_seg sorted segments (some empty) at offsets, the
     unique-seq candidate layout, padded past offsets[:, -1]."""
     K = np.full((q_n, c_n), KEY_EMPTY, np.int32)
@@ -208,7 +208,7 @@ def _segments(rng, q_n, c_n, n_seg, empty_every=3):
         seqs = rng.permutation(c_n * 4)[:sizes.sum()]
         pos = 0
         for p, n in enumerate(sizes):
-            ks = np.sort(rng.choice(2000, n, replace=False)) - 1000
+            ks = np.sort(rng.choice(key_space, n, replace=False)) - 1000
             K[q, pos:pos + n] = ks
             # a budget cut leaves KEY_EMPTY tails inside segments
             if n > 2 and p % 2:
@@ -224,10 +224,12 @@ def _segments(rng, q_n, c_n, n_seg, empty_every=3):
     return K, V, W, S, off
 
 
-@pytest.mark.parametrize("n_seg", [2, 3, 5, 7, 8])
+@pytest.mark.parametrize("n_seg", [2, 3, 5, 7, 8, 91])
 @pytest.mark.parametrize("drop", [False, True])
 def test_range_merge_plain_matches_pallas_and_ref(n_seg, drop):
-    """Non-power-of-two segment counts and empty segments."""
+    """Non-power-of-two segment counts (91: the main path's scan rows),
+    empty segments and KEY_EMPTY tails inside segments, on all five
+    returned lanes."""
     rng = np.random.default_rng(n_seg)
     lanes = _segments(rng, 3, 512, n_seg)
     got = TRM.range_merge(*map(_t, lanes), drop)
@@ -249,6 +251,91 @@ def test_range_merge_round_matches_pallas_on_all_lanes(final):
     assert len(got) == len(want)
     for g, w in zip(got, want):
         _eq(g, w)
+
+
+@pytest.mark.parametrize("n_seg,c_n", [(2, 512), (5, 512), (91, 512),
+                                        (128, 2048), (91, 4096)])
+def test_range_merge_plain_matches_rounds_on_all_lanes(n_seg, c_n):
+    """The one-sort plain version is the rounds' order lane for lane —
+    (key, seq), ties to the later segment, then by position — over rows
+    whose KEY_EMPTY tails tie across segments; distinct payloads expose
+    the order of every lane."""
+    rng = np.random.default_rng(n_seg + c_n)
+    K, _, W, S, off = _segments(rng, 4, c_n, n_seg, key_space=2 * c_n)
+    V = rng.permutation(4 * c_n).reshape(4, c_n).astype(np.int32) + 1
+    for drop in (False, True):
+        args = (*map(_t, (K, V, W, S, off)), drop)
+        want = TRM.ops.range_merge_rounds(*args, TRM.merge_round_plain)
+        got = TRM.range_merge_plain(*args)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    for q in range(4):
+        n = off[q, -1]
+        seg = np.repeat(np.arange(n_seg), np.diff(off[q]))
+        order = np.lexsort((np.arange(n), -seg, S[q, :n], K[q, :n]))
+        _eq(got[1][q, :n], np.where(K[q, order] == KEY_EMPTY, 0,
+                                    V[q, order]))
+
+
+def _tile_sizes(K, S, off, step, group):
+    """The lanes of each tile the split kernel bounds in one row: every
+    step-th lane of a segment is a sample, and every group-th sample in
+    the merged order (key, seq, -segment, lane) starts a tile."""
+    n = off[-1]
+    seg = np.repeat(np.arange(len(off) - 1), np.diff(off))
+    lane = np.arange(n) - off[seg]
+    order = np.lexsort((lane, -seg, S[:n], K[:n]))
+    rank = np.arange(n)[np.argsort(order)]
+    starts = np.sort(rank[lane % step == 0])[::group]
+    return np.diff(np.append(starts, n)), starts
+
+
+@pytest.mark.parametrize("c_n", [512, 513, 16_384])
+def test_range_geometry_covers_every_lane(c_n):
+    """The wrapper's tiles hold every lane of a row once, none more than
+    the tile's lanes, in no more tiles than the launch covers; a row of
+    at most RANGE_TILE lanes is one tile (no split launch)."""
+    for n_seg in (2, 91, 128):
+        tile, step, group, tiles, shared, ctas = TRM.ops.range_geometry(
+            c_n, n_seg)
+        if c_n <= TRM.ops.RANGE_TILE:
+            assert (tile, step, tiles) == (c_n, 0, 1)
+            continue
+        assert step * (group + n_seg) <= tile == TRM.ops.RANGE_TILE
+        assert shared and ctas >= 1
+        rng = np.random.default_rng(n_seg)
+        K, _, _, S, off = _segments(rng, 3, c_n, n_seg, empty_every=5,
+                                    key_space=2 * c_n)
+        for q in range(3):
+            sizes, starts = _tile_sizes(K[q], S[q], off[q], step, group)
+            assert starts[0] == 0 and sizes.sum() == off[q, -1]
+            assert sizes.max() <= tile and len(sizes) <= tiles
+
+
+@pytest.mark.parametrize("f_n", [1580, 632_000])
+def test_fence_geometry_covers_every_fence(f_n):
+    """Staging every G-th fence covers the run's fences with the least
+    power of two G that fits the budget, and the staged search followed
+    by log2(G) steps in the bracket finds the full search's page."""
+    group, staged = TFL.ops.fence_geometry(f_n)
+    assert group & (group - 1) == 0
+    assert (staged - 1) * group < f_n <= staged * group
+    assert 4 * staged <= TFL.ops.FENCE_SMEM_BYTES
+    assert group == 1 or 4 * -(-f_n // (group // 2)) > TFL.ops.FENCE_SMEM_BYTES
+    assert group == (1 if f_n == 1580 else 64)
+    rng = np.random.default_rng(f_n)
+    fences = np.sort(rng.integers(-2 ** 30, 2 ** 30, f_n))
+    x = np.concatenate([fences[rng.integers(0, f_n, 500)],
+                        rng.integers(-2 ** 30 - 9, 2 ** 30 + 9, 500)])
+    u = np.searchsorted(fences[::group], x, side="right")
+    lo = np.maximum((u - 1) * group + 1, 0)
+    hi = np.minimum(u * group, f_n)
+    f = np.array([a + np.searchsorted(fences[a:b], v, side="right")
+                  if g > 1 and uu > 0 else uu
+                  for a, b, v, uu, g in zip(lo, hi, x, u,
+                                             [group] * len(x))])
+    np.testing.assert_array_equal(f, np.searchsorted(fences, x,
+                                                     side="right"))
 
 
 # -- the backend helpers around the kernels -----------------------------------
