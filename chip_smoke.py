@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch/CUDA port (`src/repro_torch`) on one GPU.
 
-    python3 chip_smoke.py [--seed N] [--writes N]
+    python3 chip_smoke.py [--seed N] [--writes N] [--parent-bloom CU]
 
 Phases, in order; any failure raises and exits non-zero:
 
@@ -15,7 +15,17 @@ Phases, in order; any failure raises and exits non-zero:
              library call that computes the same function: device time
              per call from torch.profiler after warm-up, and the
              wrapper's wall time between CUDA events beside it. Bounds
-             count each byte the function needs once. heap_merge runs at
+             count each byte the function needs once. bloom_probe runs
+             as the read path launches it, once a lookup batch over both
+             disk levels, and at level 1 alone, three levels sized as
+             the adaptive tuner sizes them (k 6, 10, 13, bits < 32 W),
+             every pair a member, one run and Q = 4,093, 1,024 and 256,
+             beside one gather of the words its chains need (a floor of
+             its reads); with --parent-bloom, a previous bloom_probe.cu
+             (one launch a level) in turns with it; then two planted
+             faults (a member's last probe cleared at level 0, a
+             member's first at level 1) must turn that pair to a miss
+             and leave the other level alone. heap_merge runs at
              both shapes it launches at (the buffer flush, 50 x 800, and
              the level spill, 20 x 40,448) and at a level-1 spill
              (20 x 808,960, its samples searched in place): the k-way
@@ -33,8 +43,9 @@ Phases, in order; any failure raises and exits non-zero:
              (`paper_params(merge_budget=1, range_cand=512)`) on the card:
              8M writes and 800K interleaved deletes, 1M lookups, 2048
              range scans, 2048 aggregates, every answer checked against a
-             numpy oracle; all four kernels must have launched, and
-             range_merge once a scan or aggregate batch, no round kernel
+             numpy oracle; all four kernels must have launched,
+             bloom_probe once a lookup batch (256) and range_merge once a
+             scan or aggregate batch, no round kernel
              (heap_merge's or range_merge's); the heap_merge launches
              counted by merge shape (flush, spill).
   profile  — a short window of each main-path flow under torch.profiler:
@@ -77,6 +88,7 @@ the device record; nothing of JAX or of the reference package is used.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import re
@@ -99,6 +111,8 @@ SERVE_HOT = 1_056               # hot tokens a serve step attends at first
 AGREE_PROMPT, AGREE_STEPS = 8_192, 8     # 7 cold blocks <= topk 16
 FENCE_DEEP_RUNS = 4             # runs of level_cap(2) in the deep fence case
 RANGE_WIDE = 16_384             # scan rows wider than one merge tile
+ADAPTIVE_EPS = (2 ** -6, 1e-3, 2 ** -13)   # k = 6, 10, 13 by level
+ADAPTIVE_DEEP_CUT = 16          # level 2's runs cut to level_cap(2) / 16
 
 
 def log(*parts) -> None:
@@ -386,13 +400,284 @@ def range_case(name, rng, device, q_n, c_n, n_seg):
     return rec
 
 
-def kernel_phase(p, device, rng):
-    """Each kernel against its plain version at main-path shapes."""
+# --------------------------------------------------------------------------
+# bloom_probe: one launch a lookup batch, over every disk level
+# --------------------------------------------------------------------------
+
+def bloom_stack(keys, p, n: int, eps: float, words: int | None = None):
+    """Filters over the runs `keys` (D, cap) sized as the engine sizes an
+    n-element run at FP rate eps (`words` physical words, default the
+    geometry's): ``(blooms (D, W) int32, k, bits)``."""
     import torch
     from repro_torch.core import bloom as BL
+    from repro_torch.core.params import KEY_EMPTY
+    bits, w, k = p.bloom_geometry(n, eps)
+    words = w if words is None else words
+    return (torch.stack([BL.bloom_build(r, r != KEY_EMPTY, words, k, bits)
+                         for r in keys]), k, bits)
+
+
+def bloom_shapes(p, device, rng, keys1, qs1):
+    """The bloom_probe shapes, name -> (stacks, keys): the two disk levels
+    of a main-phase lookup batch (level 0: D runs of level_cap(0), level
+    1: the D runs `keys1` of level_cap(1)), level 1 alone; three levels
+    as the adaptive tuner sizes them (k 6, 10 and 13 from
+    ADAPTIVE_EPS, words from `bloom_words_physical`, so bits < 32 W;
+    level 2's D runs cut to level_cap(2) / ADAPTIVE_DEEP_CUT keys, since
+    a filter's bit positions are uint32 and a whole level_cap(2) run
+    would need 6.1 Gbit; its words random, half the bits set, with the
+    probes of a quarter of the keys planted in run 0); every pair a
+    member (level 1's shape, every bit set); one run; Q = 4,093, 1,024
+    and 256. The keys are `qs1` (half of them from level 1) with a
+    twentieth of them swapped for level-0 keys."""
+    import torch
+    from repro_torch.core import bloom as BL
+    from repro_torch.core.params import TuningPolicy
+    q_n = qs1.shape[0]
+    cap0 = p.level_cap(0)
+    fill0 = np.full(p.D, p.runs_merged * p.Rn, np.int64)
+    keys0 = torch.from_numpy(sorted_runs(rng, p.D, cap0, fill0)).to(device)
+    qs = qs1.clone()
+    n0 = q_n // 20
+    qs[:n0] = keys0[torch.from_numpy(rng.integers(0, p.D, n0)).to(device),
+                    torch.from_numpy(rng.integers(0, int(fill0.min()), n0))
+                    .to(device)]
+    lvl0 = bloom_stack(keys0, p, cap0, p.level_eps(0))
+    lvl1 = bloom_stack(keys1, p, p.level_cap(1), p.level_eps(1))
+
+    ad = dataclasses.replace(p, tuning=TuningPolicy(mode="adaptive"),
+                             eps_per_level=ADAPTIVE_EPS)
+    adaptive = []
+    for level, keys in ((0, keys0), (1, keys1)):
+        n, eps = ad.level_cap(level), ad.level_eps(level)
+        adaptive.append(bloom_stack(keys, ad, n, eps,
+                                    ad.bloom_words_physical(n, eps)))
+    n2, eps2 = ad.level_cap(2) // ADAPTIVE_DEEP_CUT, ad.level_eps(2)
+    bits2, _, k2 = ad.bloom_geometry(n2, eps2)
+    gen = torch.Generator(device).manual_seed(int(rng.integers(2 ** 31)))
+    deep = torch.randint(-2 ** 31, 2 ** 31,
+                         (p.D, ad.bloom_words_physical(n2, eps2)),
+                         generator=gen, dtype=torch.int32, device=device)
+    pos = BL.probe_positions(qs[:q_n // 4], k2, bits2)
+    for i in range(k2):
+        w = pos[:, i] // 32
+        deep[0, w] = BL.words_to_i32(BL.as_u32(deep[0, w])
+                                     | (1 << (pos[:, i] % 32)))
+    adaptive.append((deep, k2, bits2))
+    ones = torch.full_like(lvl1[0], -1)
+    return {
+        "lookup batch": ([lvl0, lvl1], qs),
+        "level 1": ([lvl1], qs),
+        "adaptive, 3 levels": (adaptive, qs),
+        "every pair a member": ([(ones,) + lvl1[1:]], qs),
+        "one run": ([(lvl1[0][:1],) + lvl1[1:]], qs),
+        **{f"Q={n}": ([lvl1], qs[:n].contiguous())
+           for n in (4093, 1024, 256)},
+    }
+
+
+def bloom_need(stacks, qs):
+    """What the early-exit chains of these stacks and keys need: the
+    probes they make, and the flat indices (into the stacks' words, level
+    after level) of the distinct words they read."""
+    import torch
+    from repro_torch.core import bloom as BL
+    probes, ids, base = 0, [], 0
+    for blooms, k, bits in stacks:
+        d_n, words = blooms.shape
+        pos = BL.probe_positions(qs, k, bits)                  # (Q, k)
+        bit = ((blooms[:, pos // 32].long() >> (pos % 32)) & 1).bool()
+        n = torch.where(bit.all(-1), k, (~bit).int().argmax(-1) + 1)
+        need = torch.arange(k, device=qs.device) < n[..., None]
+        word = (torch.arange(d_n, device=qs.device)[:, None, None] * words
+                + pos[None] // 32).expand_as(need)
+        ids.append(torch.unique(word[need]) + base)
+        probes += int(n.sum())
+        base += d_n * words
+    return probes, torch.cat(ids)
+
+
+def parent_bloom_levels(lib: Path):
+    """The previous bloom_probe (a build of the parent commit's
+    `csrc/bloom_probe.cu`, entry `bloom_probe_launch`) behind its
+    wrapper's checks, launched as the previous read path launched it:
+    once a level."""
+    import ctypes
+
+    import torch
+    from repro_torch.kernels.bloom_probe import ops
+    entry = ctypes.CDLL(str(lib)).bloom_probe_launch
+    entry.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 5
+                      + [ctypes.c_void_p])
+    entry.restype = ctypes.c_int
+
+    def levels(stacks, qs):
+        outs = []
+        for blooms, k, bits in stacks:
+            ops._check(blooms, qs, k, bits)
+            out = torch.empty((blooms.shape[0], qs.shape[0]),
+                              dtype=torch.bool, device=qs.device)
+            if entry(qs.data_ptr(), blooms.data_ptr(), out.data_ptr(),
+                     blooms.shape[0], qs.shape[0], blooms.shape[1], k, bits,
+                     torch.cuda.current_stream(qs.device).cuda_stream):
+                raise RuntimeError("bloom_probe (parent): launch failed")
+            outs.append(out)
+        return outs
+    return levels
+
+
+def bloom_case(name, stacks, qs, parent):
+    """bloom_probe_levels over `stacks` against the plain version of
+    each level: launches a call, bitwise equality, device and wall
+    times, the plain version's, the byte bound (keys and outputs once,
+    each filter word the early-exit chains need once) and one gather of
+    exactly those words (a floor of the reads, no library call); with
+    `parent`, the previous kernel in turns (parent, kernel, kernel,
+    parent): device times, then wall times in three such rounds."""
+    import torch
+    from repro_torch.kernels import bloom_probe as KBP
+
+    def kernel():
+        return KBP.bloom_probe_levels(stacks, qs)
+
+    def plain():
+        return [KBP.bloom_probe_plain(b, qs, k, bits) for b, k, bits in stacks]
+
+    n0 = KBP.bloom_probe_levels.launches
+    got = kernel()
+    n1 = KBP.bloom_probe_levels.launches
+    torch.cuda.synchronize()
+    want = plain()
+    probes, ids = bloom_need(stacks, qs)
+    q_n, rows = qs.shape[0], sum(b.shape[0] for b, _, _ in stacks)
+    rec = dict(
+        case=name,
+        shape=" | ".join(f"D={b.shape[0]} W={b.shape[1]} k={k} bits={bits}"
+                         for b, k, bits in stacks) + f" | Q={q_n}",
+        launches_a_call=n1 - n0, members=sum(int(w.sum()) for w in want),
+        bytes_counted=(f"{probes} probes over {ids.numel()} distinct "
+                       "filter words"),
+        max_abs_err=max_abs_err(tuple(got), tuple(want)),
+        ms=device_ms(kernel, 50), wall_ms=wall_ms(kernel, 50),
+        plain_ms=device_ms(plain, 10),
+        bound_ms=bound_ms(q_n * 4 + rows * q_n + ids.numel() * 4))
+    flat = torch.cat([b.reshape(-1) for b, _, _ in stacks])
+    rec["gather_floor_ms"] = device_ms(lambda: flat[ids], 50)
+    del flat
+    if parent is not None:
+        old = parent(stacks, qs)
+        torch.cuda.synchronize()
+        rec["parent_max_abs_err"] = max_abs_err(tuple(old), tuple(want))
+
+        def prev():
+            return parent(stacks, qs)
+        turns = [prev, kernel, kernel, prev]
+        rec.update(turns="parent, kernel, kernel, parent",
+                   parent_launches_a_call=len(stacks),
+                   turns_ms=[device_ms(f, 50) for f in turns],
+                   turns_wall_ms=[[wall_ms(f, 50) for f in turns]
+                                  for _ in range(3)])
+    log(f"bloom_probe {json.dumps(rec)}")
+    if rec["max_abs_err"] or rec.get("parent_max_abs_err"):
+        raise AssertionError(f"bloom_probe ({name}): the kernel or the "
+                             "parent differs from the plain version")
+    if rec["launches_a_call"] != 1:
+        raise AssertionError(f"bloom_probe ({name}): "
+                             f"{rec['launches_a_call']} launches a call")
+    return rec
+
+
+def bloom_controls(stacks, qs):
+    """Planted faults in the two-level launch: in a copy of level 0's
+    filters the bit of a member pair's last probe cleared, and in a copy
+    of level 1's the bit of a member pair's first probe. The pair must
+    then read as a miss, the other level's verdicts must not change,
+    and the kernel must still equal the plain version."""
+    import torch
+    from repro_torch.core import bloom as BL
+    from repro_torch.kernels import bloom_probe as KBP
+    got = KBP.bloom_probe_levels(stacks, qs)
+    out = []
+    for level, probe in ((0, "last"), (1, "first")):
+        blooms, k, bits = stacks[level]
+        d, q = (int(i) for i in got[level].nonzero()[0])
+        i = k - 1 if probe == "last" else 0
+        pos = int(BL.probe_positions(qs[q:q + 1], k, bits)[0, i])
+        cut = blooms.clone()
+        word = int(cut[d, pos // 32]) & 0xFFFFFFFF
+        cut[d, pos // 32] = int(BL.words_to_i32(torch.tensor(
+            word & ~(1 << (pos % 32)))))
+        planted = list(stacks)
+        planted[level] = (cut, k, bits)
+        after = KBP.bloom_probe_levels(planted, qs)
+        torch.cuda.synchronize()
+        rec = dict(
+            level=level, probe=probe, run=d, key=int(qs[q]),
+            member_after=bool(after[level][d, q]),
+            other_level_unchanged=all(
+                torch.equal(after[o], got[o])
+                for o in range(len(stacks)) if o != level),
+            kernel_equals_plain=all(
+                torch.equal(a, KBP.bloom_probe_plain(b, qs, kk, bb))
+                for a, (b, kk, bb) in zip(after, planted)))
+        log(f"bloom_probe control {json.dumps(rec)}")
+        if (rec["member_after"] or not rec["other_level_unchanged"]
+                or not rec["kernel_equals_plain"]):
+            raise AssertionError(f"bloom_probe control: {rec}")
+        out.append(rec)
+        del cut, planted, after
+    return out
+
+
+def bloom_phase(p, device, rng, keys1, qs1, parent=None):
+    """bloom_probe at every shape of `bloom_shapes`, then the planted
+    faults; the record is the lookup batch's (the main path's shape),
+    the other shapes under `cases`."""
+    import torch
+    shapes = bloom_shapes(p, device, rng, keys1, qs1)
+    cases = [bloom_case(name, stacks, qs, parent)
+             for name, (stacks, qs) in shapes.items()]
+    controls = bloom_controls(*shapes["lookup batch"])
+    del shapes
+    torch.cuda.empty_cache()
+    return dict(
+        cases[0], name="bloom_probe",
+        source="src/repro_torch/csrc/bloom_probe.cu",
+        replaces="src/repro/kernels/bloom_probe/bloom_probe.py:30",
+        library_ms=None,
+        library_note=("no single PyTorch call computes a double-hashed "
+                      "Bloom probe; gather_floor_ms is a floor of the "
+                      "reads, not a library time"),
+        cases=cases[1:], controls=controls)
+
+
+def level1_data(p, device, rng):
+    """Level 1 of the paper geometry on the card: D sorted runs of
+    level_cap(1) slots (the second half of them partly filled), their
+    counts, and a lookup batch of LOOKUP_BATCH keys, half of them present
+    in the runs and half random over twice the key range."""
+    import torch
+    cap1 = p.level_cap(1)
+    counts = np.full(p.D, cap1, np.int64)
+    counts[p.D // 2:] = cap1 - cap1 // 7
+    keys1 = sorted_runs(rng, p.D, cap1, counts)
+    q_n = LOOKUP_BATCH
+    present = keys1[rng.integers(0, p.D, q_n // 2),
+                    rng.integers(0, cap1 - cap1 // 7, q_n // 2)]
+    qs = np.concatenate([present, rng.integers(
+        0, 2 ** (KEY_BITS + 1), q_n - q_n // 2, dtype=np.int32)])
+    return (torch.from_numpy(keys1).to(device),
+            torch.from_numpy(counts.astype(np.int32)).to(device),
+            torch.from_numpy(qs.astype(np.int32)).to(device))
+
+
+def kernel_phase(p, device, rng, parent_bloom=None):
+    """Each kernel against its plain version at main-path shapes;
+    `parent_bloom` (see `parent_bloom_levels`) is timed in turns with
+    bloom_probe."""
+    import torch
     from repro_torch.core import runs as RU
     from repro_torch.core.params import KEY_EMPTY
-    from repro_torch.kernels import bloom_probe as KBP
     from repro_torch.kernels import heap_merge as KHM
 
     def dev(a):
@@ -400,52 +685,11 @@ def kernel_phase(p, device, rng):
 
     out = []
     q_n = LOOKUP_BATCH
-    # level 1 of the paper geometry: D runs of level_cap(1) slots
-    cap1 = p.level_cap(1)
-    counts = np.full(p.D, cap1, np.int64)
-    counts[p.D // 2:] = cap1 - cap1 // 7       # partly filled runs too
-    keys1 = sorted_runs(rng, p.D, cap1, counts)
-    keys1_t = dev(keys1)
-    counts_t = dev(counts.astype(np.int32))
-    present = keys1[rng.integers(0, p.D, q_n // 2),
-                    rng.integers(0, cap1 - cap1 // 7, q_n // 2)]
-    qs = np.concatenate([present, rng.integers(
-        0, 2 ** (KEY_BITS + 1), q_n - q_n // 2, dtype=np.int32)])
-    qs_t = dev(qs.astype(np.int32))
+    keys1_t, counts_t, qs_t = level1_data(p, device, rng)
 
-    # -- bloom_probe: level-1 filters, k probes at the level's eps
-    bits, words, k = p.bloom_geometry(cap1, p.level_eps(1))
-    blooms = torch.stack([BL.bloom_build(keys1_t[d], keys1_t[d] != KEY_EMPTY,
-                                         words, k, bits)
-                          for d in range(p.D)])
-    got = KBP.bloom_probe_many(blooms, qs_t, k, bits)
-    torch.cuda.synchronize()
-    want = KBP.bloom_probe_plain(blooms, qs_t, k, bits)
-    # bytes: each query and output once, and each filter word once that
-    # the probes this data needs read (a pair stops at its first clear bit)
-    pos = BL.probe_positions(qs_t, k, bits)
-    bit = ((blooms[:, pos // 32].long() >> (pos % 32)) & 1).bool()
-    probes = torch.where(bit.all(-1), k, (~bit).int().argmax(-1) + 1)
-    need = torch.arange(k, device=device) < probes[..., None]
-    word_id = (torch.arange(p.D, device=device)[:, None, None] * words
-               + pos[None] // 32).expand_as(need)
-    bloom_words = int(torch.unique(word_id[need]).numel())
-
-    def probe():
-        return KBP.bloom_probe_many(blooms, qs_t, k, bits)
-
-    out.append(dict(
-        name="bloom_probe", source="src/repro_torch/csrc/bloom_probe.cu",
-        replaces="src/repro/kernels/bloom_probe/bloom_probe.py:30",
-        shape=f"D={p.D} W={words} k={k} Q={q_n}",
-        bytes_counted=(f"{int(probes.sum())} probes over {bloom_words} "
-                       "distinct filter words"),
-        max_abs_err=max_abs_err(got, want),
-        ms=device_ms(probe, 50), wall_ms=wall_ms(probe, 50),
-        plain_ms=device_ms(lambda: KBP.bloom_probe_plain(blooms, qs_t, k,
-                                                         bits), 10),
-        bound_ms=bound_ms(q_n * 4 + p.D * q_n + bloom_words * 4),
-        library_ms=None))
+    # -- bloom_probe: one launch over both disk levels of a lookup batch,
+    # and the shapes around it (bloom_phase)
+    out.append(bloom_phase(p, device, rng, keys1_t, qs_t, parent_bloom))
 
     # -- fence_lookup: level-1 fences over the same runs (the main path),
     # and a deployment whose level 2 is filled: runs of level_cap(2)
@@ -1321,6 +1565,12 @@ def main() -> int:
     ap.add_argument("--writes", type=int, default=8_000_000,
                     help="main-phase inserts (800 per 8000 become deletes "
                          "on top); lower only for a rehearsal")
+    ap.add_argument("--parent-bloom", metavar="CU",
+                    help="a previous csrc/bloom_probe.cu (entry "
+                         "bloom_probe_launch, one launch a level), e.g. "
+                         "from `git show <commit>:src/repro_torch/csrc/"
+                         "bloom_probe.cu`: built into build/bloom_parent/ "
+                         "and timed in turns with bloom_probe")
     args = ap.parse_args()
 
     import torch
@@ -1352,9 +1602,24 @@ def main() -> int:
         f"cuda={torch.version.cuda}")
     print(smi, flush=True)
 
+    parent_build = None
+    if args.parent_bloom:       # built beside the port's five, at once
+        lib = ROOT / "build" / "bloom_parent" / "libbloom_probe_parent.so"
+        lib.parent.mkdir(parents=True, exist_ok=True)
+        parent_build = subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
+             "-o", str(lib), str(Path(args.parent_bloom).resolve())],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     build_s = _build.build_all()
     log(f"build: {len(_build.sources())} kernels with nvcc "
         f"{' '.join(_build.NVCC_FLAGS[:2])} in {build_s:.1f} s")
+    parent_bloom = None
+    if parent_build is not None:
+        text, _ = parent_build.communicate()
+        if parent_build.returncode:
+            raise RuntimeError(f"nvcc failed on {args.parent_bloom}:\n{text}")
+        parent_bloom = parent_bloom_levels(lib)
+        log(f"parent bloom_probe built from {args.parent_bloom}")
     for src, text in sorted(_build.build_log().items()):
         regs = [int(w) for w in re.findall(r"Used (\d+) registers", text)]
         spills = sum(int(w) for w in re.findall(r"(\d+) bytes spill stores",
@@ -1365,9 +1630,9 @@ def main() -> int:
 
     rng = np.random.default_rng(args.seed)
     kernels = kernel_phase(paper_params(merge_budget=1, range_cand=512),
-                           device, rng)
+                           device, rng, parent_bloom)
 
-    counters = {"bloom_probe": KBP.bloom_probe_many,
+    counters = {"bloom_probe": KBP.bloom_probe_levels,
                 "fence_lookup": KFL.fence_lookup_many,
                 "heap_merge": KHM.kway_merge,
                 "range_merge": KRM.range_merge,
@@ -1396,6 +1661,11 @@ def main() -> int:
         raise AssertionError(f"main path: range_merge launched "
                              f"{launches['range_merge']} times for "
                              f"{batches} batches, rounds {rounds}")
+    batches = main["lookups"] // LOOKUP_BATCH   # one probe launch each
+    if launches["bloom_probe"] != batches:
+        raise AssertionError(f"main path: bloom_probe launched "
+                             f"{launches['bloom_probe']} times for "
+                             f"{batches} lookup batches")
     for flow, rec in profile_phase(eng, args.seed).items():
         log(f"profile {flow} [{card}]: " + json.dumps(rec))
     del eng

@@ -43,11 +43,13 @@ def params_from_dict(d: dict) -> SLSMParams:
 
 
 def _tensor(a, device) -> torch.Tensor:
+    """An int32 tensor of leaf `a`'s shape: a 0-d leaf stays 0-d
+    (`np.ascontiguousarray` would return it 1-d)."""
     a = np.asarray(a)
     if a.dtype == np.uint32:
         a = a.view(np.int32)
     return torch.tensor(np.ascontiguousarray(a), dtype=torch.int32,
-                        device=device)
+                        device=device).reshape(a.shape)
 
 
 def state_from_leaves(params: SLSMParams, leaves: Sequence,

@@ -95,8 +95,10 @@ def build_fences(keys: torch.Tensor, mu: int, n_fences: int) -> torch.Tensor:
 
 def run_minmax(keys: torch.Tensor, count: torch.Tensor):
     """(min, max) key of a compacted sorted run (paper 2.3 min/max
-    filter), as 0-d int32 tensors."""
-    last = keys[(count.to(torch.int64) - 1).clamp(min=0)]
+    filter), as 0-d int32 tensors. Trap T4: a count past the run's
+    capacity (a deepest-level overflow, which the scheduler then raises)
+    reads the last slot, as JAX clamps the gather."""
+    last = keys[(count.to(torch.int64) - 1).clamp(0, keys.shape[0] - 1)]
     mn = torch.where(count > 0, keys[0], _KEY_EMPTY)
     mx = torch.where(count > 0, last, _KEY_MIN)
     return mn.to(torch.int32), mx.to(torch.int32)

@@ -5,6 +5,8 @@ The reference picks its primitives by `SLSMParams.backend` ("jnp" or
 kernel wrapper from `repro_torch.kernels`, which launches the CUDA kernel
 for CUDA tensors and runs its plain PyTorch version for CPU tensors.
 
+  bloom_probe_levels: ([(blooms (D_l, W_l) i32, k_l, bits_l), ...], qs (Q,))
+                     -> [(D_l, Q) bool, ...]   [one launch, every level]
   bloom_probe_many:  (blooms (D, W) i32, qs (Q,), k, bits) -> (D, Q) bool
   fence_lookup_many: (qs (Q,), fences (D, F), keys (D, cap), counts (D,),
                       mu) -> (D, Q) i32 idx | -1
@@ -14,22 +16,24 @@ for CUDA tensors and runs its plain PyTorch version for CPU tensors.
                       drop) -> (keys, vals, wts, seqs, keep)
 
 The helpers around them (`strided_fences`, `fence_window_idx`,
-`fence_window_bounds`, `candidate_gate`, `lookup_level_many`) are plain
-tensor code on either device.
+`fence_window_bounds`, `in_window`, `candidate_gate`, `gated_hits`,
+`lookup_level_many`) are plain tensor code on either device.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.bloom_probe import bloom_probe_many
+from repro_torch.kernels.bloom_probe import (bloom_probe_levels,
+                                             bloom_probe_many)
 from repro_torch.kernels.fence_lookup import fence_lookup_many
 from repro_torch.kernels.fence_lookup.ops import page_search
 from repro_torch.kernels.heap_merge import heap_merge as merge_runs
 from repro_torch.kernels.range_merge import range_merge
 
-__all__ = ["bloom_probe_many", "fence_lookup_many", "merge_runs",
-           "range_merge", "strided_fences", "fence_window_idx",
-           "fence_window_bounds", "candidate_gate", "lookup_level_many"]
+__all__ = ["bloom_probe_levels", "bloom_probe_many", "fence_lookup_many",
+           "merge_runs", "range_merge", "strided_fences",
+           "fence_window_idx", "fence_window_bounds", "in_window",
+           "candidate_gate", "gated_hits", "lookup_level_many"]
 
 
 def strided_fences(fences: torch.Tensor, stride: int) -> torch.Tensor:
@@ -47,23 +51,35 @@ def fence_window_idx(queries, fences, keys, count, mu: int) -> torch.Tensor:
                              count.reshape(1), mu)[0]
 
 
+def in_window(qs, mins, maxs) -> torch.Tensor:
+    """(D, Q) mask: query q lies in run d's [min, max] window."""
+    return (qs[None, :] >= mins[:, None]) & (qs[None, :] <= maxs[:, None])
+
+
 def candidate_gate(qs, blooms, mins, maxs, k: int,
                    bits: int | None = None) -> torch.Tensor:
     """(D, Q) candidate mask over one level's runs: min/max window AND
     Bloom positive (paper 2.3)."""
-    inwin = (qs[None, :] >= mins[:, None]) & (qs[None, :] <= maxs[:, None])
-    return inwin & bloom_probe_many(blooms, qs, k, bits)
+    return in_window(qs, mins, maxs) & bloom_probe_many(blooms, qs, k, bits)
+
+
+def gated_hits(qs, bloom, mins, maxs, fences, keys, counts, mu: int):
+    """A level's hits from its Bloom verdicts `bloom` (D, Q): one
+    fence-search launch covers every (run, query) pair, and a pair hits
+    where it is in its run's window, Bloom positive and found. Returns
+    ``(hit (D, Q) bool, idx (D, Q) i32)``; ``idx`` is clamped to a
+    gatherable index (meaningful only where ``hit``)."""
+    idx = fence_lookup_many(qs, fences, keys, counts, mu)
+    gate = in_window(qs, mins, maxs) & bloom
+    return gate & (idx >= 0), idx.clamp(min=0)
 
 
 def lookup_level_many(qs, blooms, mins, maxs, fences, keys, counts, k: int,
                       mu: int, bits: int | None = None):
-    """One candidate pass over all D runs of a level for Q queries: one
-    Bloom-probe launch and one fence-search launch cover every (run,
-    query) pair. Returns ``(hit (D, Q) bool, idx (D, Q) i32)``; ``idx``
-    is clamped to a gatherable index (meaningful only where ``hit``)."""
-    gate = candidate_gate(qs, blooms, mins, maxs, k, bits)
-    idx = fence_lookup_many(qs, fences, keys, counts, mu)
-    return gate & (idx >= 0), idx.clamp(min=0)
+    """One candidate pass over all D runs of a level for Q queries: the
+    level's Bloom probes, then `gated_hits`."""
+    return gated_hits(qs, bloom_probe_many(blooms, qs, k, bits), mins, maxs,
+                      fences, keys, counts, mu)
 
 
 def fence_window_bounds(lo, hi, fences, keys, counts, mu: int):

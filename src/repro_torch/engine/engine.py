@@ -135,8 +135,9 @@ class SLSM:
 
     def lookup_many(self, keys, sparse: bool = False):
         """Batched multi-key fast path: the queries padded to a
-        power-of-two bucket, one Bloom-probe and one fence-search launch
-        per disk level for all of them. Same results as `lookup`."""
+        power-of-two bucket, one Bloom-probe launch over every disk level
+        and one fence-search launch a level for all of them. Same results
+        as `lookup`."""
         if sparse:
             raise NotImplementedError("the sparse (Bloom-compacted) lookup "
                                       "is not ported yet")

@@ -4,8 +4,9 @@ Lookups walk newest -> oldest across every structure — staging buffer,
 sealed memory runs, then each disk level — keeping the match with the
 highest seqno; presence is the sign of the newest record's weight. Disk
 levels are gated by min/max windows AND Bloom positives (paper 2.3):
-one `bloom_probe` launch and one `fence_lookup` launch per level cover
-every (run, query) pair (`backend.lookup_level_many`).
+one `bloom_probe` launch a batch covers every (level, run, query) triple
+(`backend.bloom_probe_levels`), then one `fence_lookup` launch a level
+covers every (run, query) pair (`backend.gated_hits`).
 
 Range scans run the fence-pruned scan engine: every structure's window
 bounds come through the fence machinery, the in-window extents are
@@ -80,16 +81,27 @@ def search_memory_runs(state: SLSMState, qs: torch.Tensor):
         torch.where(hit, state.buf_wts.gather(1, ic), 0))
 
 
+def bloom_verdicts(p: SLSMParams, levels, qs: torch.Tensor):
+    """Every disk level's Bloom verdicts for Q queries, (D, Q) bool a
+    level, from one `bloom_probe_levels` call (each level with its own
+    k and bits)."""
+    stacks = []
+    for level, lv in enumerate(levels):
+        bits, _, kk = p.bloom_geometry(p.level_cap(level),
+                                       p.level_eps(level))
+        stacks.append((lv.blooms, kk, bits))
+    return BE.bloom_probe_levels(stacks, qs)
+
+
 def search_level_dense(p: SLSMParams, lv: LevelState, level: int,
-                       qs: torch.Tensor):
-    """Exact disk-level search: one fused Bloom-probe + fence-search pass
-    over all (run, query) pairs, then newest-wins across the D runs."""
-    bits, _, kk = p.bloom_geometry(p.level_cap(level), p.level_eps(level))
+                       qs: torch.Tensor, bloom: torch.Tensor):
+    """Exact disk-level search: the level's Bloom verdicts `bloom` (D, Q)
+    AND its min/max windows AND one fence-search pass over all (run,
+    query) pairs, then newest-wins across the D runs."""
     stride, mu_eff = p.fence_view(level)
     fences = BE.strided_fences(lv.fences, stride)
-    hit, idxc = BE.lookup_level_many(qs, lv.blooms, lv.mins, lv.maxs,
-                                     fences, lv.keys, lv.counts, kk, mu_eff,
-                                     bits)
+    hit, idxc = BE.gated_hits(qs, bloom, lv.mins, lv.maxs, fences, lv.keys,
+                              lv.counts, mu_eff)
     idxc = idxc.long()
     return _pick_newest(
         torch.where(hit, lv.seqs.gather(1, idxc), _SEQ_NONE),
@@ -103,8 +115,9 @@ def lookup_batch(p: SLSMParams, state: SLSMState, qs: torch.Tensor):
     qs = qs.to(I32)
     best = search_stage(state, qs)
     best = consider(*best, *search_memory_runs(state, qs))
-    for level, lv in enumerate(state.levels):
-        best = consider(*best, *search_level_dense(p, lv, level, qs))
+    blooms = bloom_verdicts(p, state.levels, qs)
+    for level, (lv, bloom) in enumerate(zip(state.levels, blooms)):
+        best = consider(*best, *search_level_dense(p, lv, level, qs, bloom))
     best_seq, best_val, best_wt = best
     found = (best_seq >= 0) & (best_wt > 0)
     return torch.where(found, best_val, 0), found

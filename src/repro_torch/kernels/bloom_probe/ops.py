@@ -1,15 +1,22 @@
-"""bloom_probe: Bloom membership of Q keys in each of a level's D filters.
+"""bloom_probe: Bloom membership of Q keys in every run of every disk level.
 
-The wrapper `bloom_probe_many` launches `csrc/bloom_probe.cu` for CUDA
-tensors and runs `bloom_probe_plain` for CPU tensors. It counts its
-launches in `bloom_probe_many.launches`.
+`bloom_probe_levels` takes one lookup batch's keys and each level's
+filter stack, with the level's own k and bits: on CUDA tensors it is one
+launch of `csrc/bloom_probe.cu` for all of them, on CPU tensors it runs
+`bloom_probe_plain` level by level. `bloom_probe_many` is the same for
+one stack. Launches are counted in `bloom_probe_levels.launches`.
 """
 from __future__ import annotations
+
+import array
+from typing import Sequence
 
 import torch
 
 from repro_torch.core import bloom as BL
 from repro_torch.kernels import _build
+
+MAX_LEVELS = 16     # levels one launch takes (bloom_probe.cu kMaxLevels)
 
 
 def bloom_probe_plain(blooms: torch.Tensor, qs: torch.Tensor, k: int,
@@ -23,33 +30,69 @@ def bloom_probe_plain(blooms: torch.Tensor, qs: torch.Tensor, k: int,
     return torch.all(((w >> (pos % 32)) & 1) == 1, dim=-1)
 
 
-def bloom_probe_many(blooms: torch.Tensor, qs: torch.Tensor, k: int,
-                     bits: int | None = None) -> torch.Tensor:
-    """(D, W) int32 filters, (Q,) int32 keys -> (D, Q) bool membership."""
-    if bits is None:
-        bits = blooms.shape[1] * 32
-    if blooms.device.type == "cpu":
-        return bloom_probe_plain(blooms, qs, k, bits)
-    if blooms.device.type != "cuda" or qs.device != blooms.device:
-        raise ValueError("bloom_probe: blooms and keys must share one "
-                         "CUDA device (or both lie on the CPU)")
+def _check(blooms: torch.Tensor, qs: torch.Tensor, k: int, bits: int):
+    if blooms.device != qs.device:
+        raise ValueError("bloom_probe: filters and keys must share one "
+                         "CUDA device (or all lie on the CPU)")
     if blooms.dtype != torch.int32 or qs.dtype != torch.int32:
         raise TypeError("bloom_probe: int32 filters and keys expected")
     if blooms.dim() != 2 or qs.dim() != 1:
         raise ValueError("bloom_probe: blooms (D, W) and keys (Q,) expected")
     if not (blooms.is_contiguous() and qs.is_contiguous()):
         raise ValueError("bloom_probe: contiguous tensors expected")
-    if not 0 < bits <= blooms.shape[1] * 32 or not 0 < k:
+    if not 0 < bits <= min(blooms.shape[1] * 32, 2 ** 32 - 1) or not 0 < k:
         raise ValueError(f"bloom_probe: bad geometry bits={bits} k={k}")
-    d_n, q_n = blooms.shape[0], qs.shape[0]
-    out = torch.empty((d_n, q_n), dtype=torch.bool, device=blooms.device)
-    fn = _build.bind("bloom_probe", "bloom_probe_launch", 3, 5)
-    _build.check(fn(qs.data_ptr(), blooms.data_ptr(), out.data_ptr(), d_n,
-                    q_n, blooms.shape[1], k, bits,
-                    torch.cuda.current_stream(blooms.device).cuda_stream),
-                 "bloom_probe")
-    bloom_probe_many.launches += 1
-    return out
 
 
-bloom_probe_many.launches = 0
+def bloom_probe_levels(stacks: Sequence, qs: torch.Tensor
+                       ) -> list[torch.Tensor]:
+    """Bloom membership of keys (Q,) int32 in each level's filters.
+
+    `stacks` holds one ``(blooms (D_l, W_l) int32, k_l, bits_l)`` a level
+    (bits None: W_l * 32). Returns one (D_l, Q) bool a level. On the card
+    every level goes in one launch, whose output is one (sum D_l, Q)
+    tensor cut into row views."""
+    dev = qs.device
+    if dev.type == "cpu" and all(b.device.type == "cpu"
+                                 for b, _, _ in stacks):
+        return [bloom_probe_plain(b, qs, k, bits) for b, k, bits in stacks]
+    if dev.type != "cuda":
+        raise ValueError("bloom_probe: filters and keys must share one "
+                         "CUDA device (or all lie on the CPU)")
+    if len(stacks) > MAX_LEVELS:
+        raise ValueError(f"bloom_probe: {len(stacks)} levels, one launch "
+                         f"takes at most {MAX_LEVELS}")
+    # the kernel's level table: filters' address, D, W, k, bits a level
+    table, rows = array.array("q"), 0
+    for b, k, bits in stacks:
+        if bits is None:
+            bits = b.shape[1] * 32
+        _check(b, qs, k, bits)
+        table.extend((b.data_ptr(), b.shape[0], b.shape[1], k, bits))
+        rows += b.shape[0]
+    q_n = qs.shape[0]
+    out = torch.empty((rows, q_n), dtype=torch.bool, device=dev)
+    if rows and q_n:
+        fn = _build.bind("bloom_probe", "bloom_probe_levels_launch", 3, 2)
+        _build.check(fn(qs.data_ptr(), out.data_ptr(), table.buffer_info()[0],
+                        len(stacks), q_n,
+                        torch.cuda.current_stream(dev).cuda_stream),
+                     "bloom_probe")
+        bloom_probe_levels.launches += 1
+    if len(stacks) == 1:
+        return [out]
+    views, r0 = [], 0
+    for b, _, _ in stacks:
+        views.append(out[r0:r0 + b.shape[0]])
+        r0 += b.shape[0]
+    return views
+
+
+bloom_probe_levels.launches = 0
+
+
+def bloom_probe_many(blooms: torch.Tensor, qs: torch.Tensor, k: int,
+                     bits: int | None = None) -> torch.Tensor:
+    """(D, W) int32 filters, (Q,) int32 keys -> (D, Q) bool membership:
+    `bloom_probe_levels` with one level."""
+    return bloom_probe_levels([(blooms, k, bits)], qs)[0]

@@ -142,6 +142,82 @@ def test_port_resumes_from_reference_state(budget):
     _leaves_equal(ref.state, fresh.state)
 
 
+def test_state_from_leaves_keeps_leaf_shapes():
+    """Every leaf from `state_from_leaves` has the shape of the same leaf
+    of the reference and of the port's `init_state`: the 0-d counters
+    (`stage_count`, `run_count`, `next_seq`) stay 0-d."""
+    from repro_torch.engine.memtable import init_state
+    rng = np.random.default_rng(11)
+    ref, port = _pair(SMALL, "tiering")
+    _stream(ref, port, DictOracle(), rng, rounds=10)
+    assert ref.n_levels >= 1
+    want = [np.asarray(x) for x in jax.tree_util.tree_leaves(ref.state)]
+    got = convert.state_to_leaves(
+        convert.state_from_leaves(port.p, want, "cpu"))
+    fresh = convert.state_to_leaves(init_state(port.p, "cpu", ref.n_levels))
+    assert len(got) == len(want) == len(fresh)
+    for i, (g, w, f) in enumerate(zip(got, want, fresh)):
+        assert g.shape == w.shape == f.shape, f"leaf {i}"
+    for name in ("stage_count", "run_count", "next_seq"):
+        assert convert.state_from_leaves(
+            port.p, want, "cpu")._asdict()[name].dim() == 0, name
+
+
+def test_lookup_batch_probes_every_level_in_one_call(monkeypatch):
+    """A lookup batch over two or more disk levels asks
+    `bloom_probe_levels` once, with every level's stack, and never the
+    one-level `bloom_probe_many`; the answers stay bitwise equal to the
+    reference and the oracle."""
+    from repro_torch.engine import backend as TB
+    rng = np.random.default_rng(12)
+    ref, port = _pair(SMALL, "tiering")
+    oracle = DictOracle()
+    _stream(ref, port, oracle, rng, rounds=24)
+    assert port.n_levels == ref.n_levels >= 2
+    calls = []
+    real = TB.bloom_probe_levels
+
+    def counted(stacks, qs):
+        calls.append(len(stacks))
+        return real(stacks, qs)
+
+    def refused(*args):
+        raise AssertionError("a one-level Bloom probe on the lookup path")
+
+    monkeypatch.setattr(TB, "bloom_probe_levels", counted)
+    monkeypatch.setattr(TB, "bloom_probe_many", refused)
+    qs = np.arange(-4, KEY_SPACE + 4, dtype=np.int32)
+    vp, fp = port.lookup_many(qs)
+    assert calls == [port.n_levels]
+    vr, fr = ref.lookup_many(qs)
+    vo, fo = oracle.lookup(qs)
+    np.testing.assert_array_equal(fp, fr)
+    np.testing.assert_array_equal(vp, vr)
+    np.testing.assert_array_equal(fp, fo)
+    np.testing.assert_array_equal(vp[fp], vo[fo])
+    port.lookup(qs[:7])
+    assert calls == [port.n_levels] * 2
+
+
+def test_deepest_level_overflow_raises_like_reference():
+    """More live keys than the deepest level holds: the port raises the
+    reference's RuntimeError at the same write, not an index error."""
+    def drive(t):
+        rng = np.random.default_rng(5)
+        for r in range(60):
+            t.insert(rng.integers(0, 400, 12).astype(np.int32),
+                     rng.integers(-2 ** 31, 2 ** 31 - 1, 12,
+                                  dtype=np.int64).astype(np.int32))
+            t.delete(rng.integers(0, 400, 3).astype(np.int32))
+
+    ref, port = _pair(SMALL, "tiering")
+    with pytest.raises(RuntimeError, match="deepest level overflow") as want:
+        drive(ref)
+    with pytest.raises(RuntimeError, match="deepest level overflow") as got:
+        drive(port)
+    assert str(got.value) == str(want.value)
+
+
 def test_reserved_sentinels_rejected():
     t = SLSM(SMALL_PORT, device="cpu")
     ok_keys = np.asarray([1, 2], np.int32)

@@ -61,6 +61,166 @@ def test_bloom_probe_kernel_matches_plain(cuda, bits):
     assert got[:, :500].any(dim=0).all()     # no false negatives
 
 
+def _level(rng, d_n, n, words, k, bits, device):
+    """A (d_n, words) stack of filters over n random keys each, and the
+    keys (d_n, n)."""
+    keys = rng.integers(I32.min, I32.max, (d_n, n), dtype=np.int64).astype(
+        np.int32)
+    blooms = torch.stack([BL.bloom_build(_t(kr), _t(np.ones(n, bool)),
+                                         words, k, bits) for kr in keys])
+    return blooms.to(device), keys
+
+
+def _keys(rng, members, q_n):
+    """q_n keys: half drawn from `members`, the rest random, the INT32
+    extremes first."""
+    qs = np.concatenate([rng.choice(members.reshape(-1), q_n // 2),
+                         rng.integers(I32.min, I32.max, q_n - q_n // 2)])
+    qs = rng.permutation(qs).astype(np.int32)
+    qs[:2] = [I32.min, I32.max][:q_n]
+    return qs
+
+
+def _levels_equal(stacks, q):
+    """One launch over `stacks`, bitwise against the plain version of
+    each level; returns the verdicts."""
+    before = KBP.bloom_probe_levels.launches
+    got = KBP.bloom_probe_levels(stacks, q)
+    torch.cuda.synchronize()
+    assert KBP.bloom_probe_levels.launches == before + 1
+    assert len(got) == len(stacks)
+    for out, (b, k, bits) in zip(got, stacks):
+        assert torch.equal(out, KBP.bloom_probe_plain(b, q, k, bits))
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("below", [False, True], ids=["bits=32W", "bits<32W"])
+@pytest.mark.parametrize("k", [1, 2, 3, 6, 10, 13, 16, 32])
+def test_bloom_probe_levels_kernel_each_k(cuda, k, below):
+    """20 runs, 4,093 keys, every k from a single probe to 32 (past the
+    burst and across its chunks), at the full width and below it."""
+    rng = np.random.default_rng(k)
+    words = 700
+    bits = words * 32 - 77 if below else None
+    blooms, keys = _level(rng, 20, 600 if k <= 16 else 300, words, k, bits,
+                          cuda)
+    q = _t(_keys(rng, keys, 4093), cuda)
+    out, = _levels_equal([(blooms, k, bits)], q)
+    assert out.any() and not out.all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q_n", [1, 255, 4093, 4096])
+@pytest.mark.parametrize("d_n", [1, 20])
+@pytest.mark.parametrize("n_levels", [1, 2, 3])
+def test_bloom_probe_levels_kernel_mixed_levels(cuda, n_levels, d_n, q_n):
+    """1-3 levels of one launch, each its own (W, k, bits): k 6, 10 and
+    13, bits below 32 W in two of them; one or 20 runs a level, and a
+    level with a ragged last run group (D = 7)."""
+    rng = np.random.default_rng(100 * n_levels + d_n + q_n)
+    geoms = [(d_n, 400, 300, 6, 9000), (7, 900, 2000, 10, None),
+             (d_n, 300, 500, 13, 15_000)][:n_levels]
+    stacks, members = [], []
+    for d, n, words, k, bits in geoms:
+        blooms, keys = _level(rng, d, n, words, k, bits, cuda)
+        stacks.append((blooms, k, bits))
+        members.append(keys.reshape(-1))
+    q = _t(_keys(rng, np.concatenate(members), q_n), cuda)
+    _levels_equal(stacks, q)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["zeros", "ones", "all members",
+                                  "no members"])
+def test_bloom_probe_levels_kernel_extremes(cuda, case):
+    """All-zero and all-one filters; a batch whose every (run, key) pair
+    is a member (each run built over all the keys); one where no pair
+    is (only keys every run's filter rejects)."""
+    rng = np.random.default_rng(7)
+    q_n = 4096
+    keys = rng.integers(I32.min, I32.max, q_n, dtype=np.int64).astype(
+        np.int32)
+    keys[:2] = [I32.min, I32.max]
+    stacks = []
+    for d_n, words, k, bits in ((20, 2000, 10, 60_000), (3, 500, 13, None)):
+        if case in ("zeros", "ones"):
+            blooms = torch.full((d_n, words), 0 if case == "zeros" else -1,
+                                dtype=torch.int32, device=cuda)
+        elif case == "all members":
+            blooms = BL.bloom_build(_t(keys), _t(np.ones(q_n, bool)), words,
+                                    k, bits).to(cuda).expand(d_n, -1)
+            blooms = blooms.contiguous()
+        else:
+            blooms, _ = _level(rng, d_n, 300, words, k, bits, cuda)
+        stacks.append((blooms, k, bits))
+    q = _t(keys, cuda)
+    if case == "no members":
+        hit = torch.zeros(q_n, dtype=torch.bool, device=cuda)
+        for b, k, bits in stacks:
+            hit |= KBP.bloom_probe_plain(b, q, k, bits).any(dim=0)
+        q = q[~hit].contiguous()
+    got = _levels_equal(stacks, q)
+    every = torch.cat(got)
+    if case in ("ones", "all members"):
+        assert every.all()
+    else:
+        assert not every.any()
+
+
+@pytest.mark.gpu
+def test_bloom_probe_levels_struct_capacity(cuda):
+    """As many levels as the launch's parameter struct holds go in one
+    launch; one more raises before anything launches."""
+    rng = np.random.default_rng(3)
+    stacks, members = [], []
+    for i in range(KBP.ops.MAX_LEVELS):
+        blooms, keys = _level(rng, 1 + i % 5, 50, 16 + i, 1 + i % 13, None,
+                              cuda)
+        stacks.append((blooms, 1 + i % 13, None))
+        members.append(keys.reshape(-1))
+    q = _t(_keys(rng, np.concatenate(members), 500), cuda)
+    _levels_equal(stacks, q)
+    before = KBP.bloom_probe_levels.launches
+    with pytest.raises(ValueError, match="at most"):
+        KBP.bloom_probe_levels(stacks + stacks[:1], q)
+    assert KBP.bloom_probe_levels.launches == before
+
+
+@pytest.mark.gpu
+def test_engine_on_card_one_probe_launch_a_lookup_batch(cuda):
+    """The engine on the card through a write/delete stream that fills
+    two disk levels or more: every lookup batch is oracle-exact and
+    launches bloom_probe once, whatever the number of levels."""
+    from repro_torch.core.oracle import DictOracle
+    from repro_torch.core.params import SLSMParams
+    from repro_torch.engine import SLSM
+    p = SLSMParams(R=2, Rn=8, eps=0.02, D=2, m=1.0, mu=4, max_levels=3,
+                   max_range=512, cand_factor=16)
+    rng = np.random.default_rng(5)
+    eng, oracle = SLSM(p, device=cuda), DictOracle()
+    batches = 0
+    for _ in range(60):
+        ks = rng.integers(0, 120, 12).astype(np.int32)
+        vs = rng.integers(I32.min, I32.max, 12, dtype=np.int64).astype(
+            np.int32)
+        eng.insert(ks, vs)
+        oracle.insert(ks, vs)
+        dels = rng.integers(0, 120, 3).astype(np.int32)
+        eng.delete(dels)
+        oracle.delete(dels)
+        if eng.n_levels:
+            qs = np.arange(-3, 123, dtype=np.int32)
+            before = KBP.bloom_probe_levels.launches
+            v, f = eng.lookup_many(qs)
+            assert KBP.bloom_probe_levels.launches == before + 1
+            batches += 1
+            vo, fo = oracle.lookup(qs)
+            np.testing.assert_array_equal(f, fo)
+            np.testing.assert_array_equal(v[f], vo[fo])
+    assert eng.n_levels >= 2 and batches > 0
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("fence_bytes", [None, 64])
 @pytest.mark.parametrize("stride", [1, 2, 4])

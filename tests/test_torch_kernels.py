@@ -75,6 +75,39 @@ def test_bloom_probe_plain_matches_pallas_and_ref(d_n, n, words, k, bits,
                             bits))
 
 
+@pytest.mark.parametrize("geoms", [
+    [(2, 100, 64, 1, None)],
+    [(3, 200, 40, 13, 1200), (2, 50, 16, 4, None)],
+    [(2, 80, 32, 6, 1000), (3, 300, 128, 10, 4000), (1, 30, 8, 13, 250)]],
+    ids=["1 level k=1", "2 levels k=13,4", "3 levels k=6,10,13"])
+def test_bloom_probe_levels_plain_matches_pallas_and_ref(geoms):
+    """One `bloom_probe_levels` call over 1-3 levels, each its own (D, W,
+    k, bits) (bits below 32 W too), against the Pallas kernel and
+    `ref.py` level by level and run by run; the INT32 extremes among the
+    keys, and keys of every level's runs among them."""
+    rng = np.random.default_rng(len(geoms))
+    stacks, qs = [], []
+    for i, (d_n, n, words, k, bits) in enumerate(geoms):
+        blooms, q = _bloom_case(10 * i + d_n, d_n, n, words, k, bits, 200)
+        stacks.append((blooms, k, bits))
+        qs.append(q[:100])
+    qs = rng.permutation(np.concatenate(qs)).astype(np.int32)
+    qs[:2] = [I32.min, I32.max]
+    got = TBP.bloom_probe_levels(
+        [(_t(b.view(np.int32)), k, bits) for b, k, bits in stacks], _t(qs))
+    assert len(got) == len(stacks)
+    for out, (blooms, k, bits) in zip(got, stacks):
+        assert out.dtype == torch.bool and out.shape == (len(blooms),
+                                                         len(qs))
+        assert out.any() and not out.all()
+        for d in range(len(blooms)):
+            _eq(out[d], bloom_probe_op(jnp.asarray(blooms[d]),
+                                       jnp.asarray(qs), k, bits))
+            _eq(out[d].to(torch.int32),
+                bloom_probe_ref(jnp.asarray(blooms[d]), jnp.asarray(qs), k,
+                                bits))
+
+
 # -- fence_lookup -------------------------------------------------------------
 
 def _fence_case(seed, d_n, cap, mu, q_n):
