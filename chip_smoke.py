@@ -38,7 +38,11 @@ Phases, in order; any failure raises and exits non-zero:
              fence_lookup runs at level 1 (20 runs, 1,580 fences each,
              staged whole) and at 4 runs of level_cap(2) (632,000
              fences, ~5.2 GB of keys built on the card; every 64th fence
-             staged).
+             staged). The adaptive engine's shapes too: bloom_probe at
+             the WRITE and READ allocations of levels 0-1 and READ with
+             level 0 left out, fence_lookup at stride 2 on levels 1 and
+             0 (a partial last page, pinned), heap_merge at the read
+             allocation's 1 x 800, 1 x 40,448 and 2 x 40,448.
   main     — the engine at the paper's Table 1 baseline
              (`paper_params(merge_budget=1, range_cand=512)`) on the card:
              8M writes and 800K interleaved deletes, 1M lookups, 2048
@@ -52,6 +56,30 @@ Phases, in order; any failure raises and exits non-zero:
              device time by kernel and the device-busy share.
   cascade  — the scaled geometry through deepest-level compactions with
              annihilation, checked against the dict oracle.
+  adaptive — the adaptive tuner at the paper's widths (max_levels 4) with
+             the reference's shifting policy, through a copy of its
+             `make_shifting` stream (1M writes, 4M lookups, every other
+             lookup batch sparse, 32 scans), every answer against the
+             numpy oracle: WRITE reached in phase 1, READ at the end,
+             >= 2 retunes, >= 1 probe sample, level 0 folded empty and
+             left out of every later bloom_probe call (levels a launch
+             printed, held to the levels the state holds runs in);
+             lookups/s by allocation and search, each RETUNE's wall
+             time and, profiled apart, the card's time of its rebuild,
+             a rebuild of the final filters, and each flow's
+             device-busy share.
+  tape     — 512 mixed windows through run_tape on that engine (oracle-
+             exact, voluntary_steps(1) between windows; writes of 1-16
+             keys, see TAPE_WRITE_MAX), then 256 windows with writes of
+             1-800 keys over 65,536 keys through run_tape and op by op on
+             two engines at the cascade's geometry, answers equal and
+             exact, >= 1 compaction; segments, and blocking reads a
+             window by call site (CUDA sync debug mode).
+             Launches are counted from 0 just before, and read just
+             after, the main phase, the adaptive engine's traffic (after
+             its warm-up), its tape windows, and the scaled run_tape
+             engine's windows (not the op-by-op engine's); a path that
+             never launches one of the engine's four kernels fails.
   lsm_kernel — the attention kernel against its plain version at the LM
              path's shapes: the tiered cache read in place (bf16 and f32;
              every row it must not read is NaN), the dense cache of
@@ -113,6 +141,7 @@ FENCE_DEEP_RUNS = 4             # runs of level_cap(2) in the deep fence case
 RANGE_WIDE = 16_384             # scan rows wider than one merge tile
 ADAPTIVE_EPS = (2 ** -6, 1e-3, 2 ** -13)   # k = 6, 10, 13 by level
 ADAPTIVE_DEEP_CUT = 16          # level 2's runs cut to level_cap(2) / 16
+ADAPTIVE_N = 1_000_000          # writes of the adaptive phase's stream
 
 
 def log(*parts) -> None:
@@ -255,16 +284,19 @@ def sorted_runs(rng, d_n, cap, counts, key_bits=KEY_BITS):
     return keys
 
 
-def fence_case(name, keys, counts, qs, mu):
+def fence_case(name, keys, counts, qs, mu, stride: int = 1):
     """fence_lookup against its plain version over (D, cap) runs with
-    their fences every mu keys: bitwise equality, device and wall times,
-    the plain version's and `torch.searchsorted`'s, and the byte bound
-    of the distinct fence and key words the two searches read."""
+    their fences every mu keys, searched through every `stride`-th fence
+    (an (mu * stride)-wide page, the tuner's stride view; a partial last
+    page is pinned inside the run): bitwise equality, device and wall
+    times, the plain version's and `torch.searchsorted`'s, and the byte
+    bound of the distinct fence and key words the two searches read."""
     import torch
     from repro_torch.kernels import fence_lookup as KFL
     d_n, cap = keys.shape
     q_n = qs.shape[0]
-    fences = keys[:, ::mu].contiguous()
+    fences = keys[:, ::mu][:, ::stride].contiguous()
+    mu *= stride
     f_n = fences.shape[1]
     got = KFL.fence_lookup_many(qs, fences, keys, counts, mu)
     torch.cuda.synchronize()
@@ -292,7 +324,9 @@ def fence_case(name, keys, counts, qs, mu):
         return KFL.fence_lookup_many(qs, fences, keys, counts, mu)
 
     rec = dict(
-        case=name, shape=f"D={d_n} F={f_n} cap={cap} mu={mu} Q={q_n}",
+        case=name, shape=(f"D={d_n} F={f_n} cap={cap} mu={mu} Q={q_n}"
+                          + (f" (stride {stride}, last page partial)"
+                             if f_n * mu > cap else "")),
         fences_staged=f"every {group}: {staged} of {f_n}",
         hits=int(hit.sum()),
         bytes_counted=(f"{fence_words} distinct fence words, {key_words} "
@@ -428,8 +462,10 @@ def bloom_shapes(p, device, rng, keys1, qs1):
     would need 6.1 Gbit; its words random, half the bits set, with the
     probes of a quarter of the keys planted in run 0); every pair a
     member (level 1's shape, every bit set); one run; Q = 4,093, 1,024
-    and 256. The keys are `qs1` (half of them from level 1) with a
-    twentieth of them swapped for level-0 keys."""
+    and 256; levels 0 and 1 at the adaptive phase's WRITE and READ
+    allocations, and READ's level 1 alone (level 0 left out). The keys
+    are `qs1` (half of them from level 1) with a twentieth of them
+    swapped for level-0 keys."""
     import torch
     from repro_torch.core import bloom as BL
     from repro_torch.core.params import TuningPolicy
@@ -464,11 +500,27 @@ def bloom_shapes(p, device, rng, keys1, qs1):
         deep[0, w] = BL.words_to_i32(BL.as_u32(deep[0, w])
                                      | (1 << (pos[:, i] % 32)))
     adaptive.append((deep, k2, bits2))
+    # the adaptive phase's WRITE and READ allocations (effective bits and
+    # k inside words sized at eps_floor), and READ with level 0 left out
+    # (the read allocation folds level 0 empty)
+    from repro_torch.engine.tuner import build_presets
+    tuned = adaptive_params()
+    presets = {}
+    for name, alloc in build_presets(tuned).items():
+        pa = alloc.apply(tuned)
+        presets[name] = [
+            bloom_stack(keys, pa, pa.level_cap(level), pa.level_eps(level),
+                        pa.bloom_words_physical(pa.level_cap(level),
+                                                pa.level_eps(level)))
+            for level, keys in ((0, keys0), (1, keys1))]
     ones = torch.full_like(lvl1[0], -1)
     return {
         "lookup batch": ([lvl0, lvl1], qs),
         "level 1": ([lvl1], qs),
         "adaptive, 3 levels": (adaptive, qs),
+        "WRITE preset, 2 levels": (presets["write"], qs),
+        "READ preset, 2 levels": (presets["read"], qs),
+        "READ preset, level 0 left out": (presets["read"][1:], qs),
         "every pair a member": ([(ones,) + lvl1[1:]], qs),
         "one run": ([(lvl1[0][:1],) + lvl1[1:]], qs),
         **{f"Q={n}": ([lvl1], qs[:n].contiguous())
@@ -710,6 +762,21 @@ def kernel_phase(p, device, rng, parent_bloom=None):
     cases.append(fence_case("level 2", keys2, counts2, qs2, p.mu))
     del keys2, counts2, qs2
     torch.cuda.empty_cache()
+    # the WRITE preset's stride-2 view at levels 1 and 0 (level 0: 79
+    # fences, so the 40th page is partial and pinned to cap - 2 mu)
+    cases.append(fence_case("level 1, stride 2", keys1_t, counts_t, qs_t,
+                            p.mu, 2))
+    cap0 = p.level_cap(0)
+    fill0 = np.full(p.D, p.runs_merged * p.Rn, np.int64)
+    fill0[p.D // 2:] -= p.Rn // 3
+    keys0 = sorted_runs(rng, p.D, cap0, fill0)
+    qs0 = np.concatenate([keys0[rng.integers(0, p.D, q_n // 2),
+                                rng.integers(0, int(fill0.min()), q_n // 2)],
+                          rng.integers(0, 2 ** KEY_BITS, q_n - q_n // 2,
+                                       dtype=np.int32)])
+    cases.append(fence_case("level 0, stride 2", dev(keys0),
+                            dev(fill0.astype(np.int32)),
+                            dev(qs0.astype(np.int32)), p.mu, 2))
     out.append(dict(
         cases[0], name="fence_lookup",
         source="src/repro_torch/csrc/fence_lookup.cu",
@@ -728,7 +795,13 @@ def kernel_phase(p, device, rng, parent_bloom=None):
             ("spill", p.D, p.level_cap(0), p.runs_merged * p.Rn),
             ("flush", p.runs_merged_eff, p.Rn, p.Rn),
             ("deep spill", p.D, p.level_cap(1),
-             p.D * p.runs_merged * p.Rn)):
+             p.D * p.runs_merged * p.Rn),
+            # the read allocation: a flush of one memory run, and its
+            # eager level-0 folds of 1 and 2 runs (20 is the spill above)
+            ("read flush", 1, p.Rn, p.Rn),
+            ("read fold, 1 run", 1, p.level_cap(0), p.runs_merged * p.Rn),
+            ("read fold, 2 runs", 2, p.level_cap(0),
+             p.runs_merged * p.Rn)):
         cnt = np.full(n_runs, fill, np.int64)
         cnt[n_runs // 2:] = fill - fill // 9     # partly filled runs too
         kr = sorted_runs(rng, n_runs, cap, cnt)
@@ -757,7 +830,8 @@ def kernel_phase(p, device, rng, parent_bloom=None):
             max_abs_err=max_abs_err(got, want),
             rounds_max_abs_err=max_abs_err(old, want),
             ms=device_ms(kway, 20), wall_ms=wall_ms(kway, 20),
-            rounds_ms=device_ms(rounds, 10),
+            # one run takes no round: nothing to time
+            rounds_ms=device_ms(rounds, 10) if n_runs > 1 else None,
             rounds_launches=math.ceil(math.log2(n_runs)),
             plain_ms=device_ms(lambda lanes=lanes, ix=ix, n_runs=n_runs:
                                KHM.kway_merge_plain(*lanes, ix, n_runs), 5),
@@ -829,6 +903,24 @@ class DenseOracle:
         ks = np.flatnonzero(self.present[lo:hi]) + lo
         return ks.astype(np.int32), self.val[ks]
 
+    def apply(self, keys, vals, wts):
+        """A weighted write chunk: the last lane of each key wins, weight
+        +1 inserting the pair, -1 deleting the key."""
+        uniq, first = np.unique(keys[::-1], return_index=True)
+        self.val[uniq] = vals[::-1][first]
+        self.present[uniq] = wts[::-1][first] > 0
+
+    def check_lookups(self, qs, vals, found, what: str):
+        """Found flags and values of a lookup batch against the oracle."""
+        inside = (qs >= 0) & (qs < self.present.size)
+        want = np.zeros(qs.size, bool)
+        want[inside] = self.present[qs[inside]]
+        if not np.array_equal(found, want):
+            raise AssertionError(f"{what}: found-flags differ on "
+                                 f"{int((found != want).sum())} keys")
+        if not np.array_equal(vals[found], self.val[qs[found]]):
+            raise AssertionError(f"{what}: values differ from the oracle")
+
 
 class Clock:
     """Accumulated host time of the `with` blocks, each closed by a
@@ -847,6 +939,28 @@ class Clock:
         import torch
         torch.cuda.synchronize()
         self.total += time.perf_counter() - self._t0
+
+
+class LaunchTally:
+    """The launches of each counted kernel (`counters`, and the round
+    kernels of `contract` apart) made inside the `with` blocks: every
+    count is set to 0 as a block opens and read as it closes, and the
+    blocks' reads are summed."""
+
+    def __init__(self, counters: dict, contract: dict):
+        self.fns = {**counters, **contract}
+        self.counts = dict.fromkeys(counters, 0)
+        self.rounds = dict.fromkeys(contract, 0)
+
+    def __enter__(self):
+        for fn in self.fns.values():
+            fn.launches = 0
+        return self
+
+    def __exit__(self, *exc):
+        for out in (self.counts, self.rounds):
+            for k in out:
+                out[k] += self.fns[k].launches
 
 
 def wrap_sum(vals) -> int:
@@ -992,14 +1106,30 @@ class merge_tally:
         self.backend.merge_runs = self.real
 
 
-def profile_phase(eng, seed: int):
-    """Where the time goes, per flow of the main path: a short window of
-    each flow run once unprofiled (host wall time) and once under
-    torch.profiler (device time of every kernel it saw). The device-busy
-    share is the device time over the unprofiled wall time."""
+def flow_busy(fn):
+    """A flow's window fn() run once unprofiled (host wall time) and once
+    under torch.profiler (device time of every kernel it saw): the
+    record with the device-busy share (device time over the unprofiled
+    wall time), and the device time by name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    clock = Clock()
+    with clock:
+        fn()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name = device_us_by_name(prof)
+    busy_ms = sum(by_name.values()) / 1e3
+    return dict(wall_ms=clock.total * 1e3, device_ms=busy_ms,
+                device_busy_share=(busy_ms / (clock.total * 1e3) if busy_ms
+                                   else "not measured")), by_name
 
+
+def profile_phase(eng, seed: int):
+    """Where the time goes, per flow of the main path (`flow_busy`), with
+    the six largest device items."""
     rng = np.random.default_rng(seed + 3)
     ks = rng.integers(0, 2 ** KEY_BITS, 40 * eng.p.Rn, dtype=np.int32)
     vs = rng.integers(-2 ** 31, 2 ** 31 - 1, ks.size, dtype=np.int32)
@@ -1018,21 +1148,9 @@ def profile_phase(eng, seed: int):
     }
     out = {}
     for name, fn in flows.items():
-        clock = Clock()
-        with clock:
-            fn()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        by_name = device_us_by_name(prof)
-        busy_ms = sum(by_name.values()) / 1e3
-        out[name] = dict(
-            wall_ms=clock.total * 1e3, device_ms=busy_ms,
-            device_busy_share=(busy_ms / (clock.total * 1e3) if busy_ms
-                               else "not measured"),
-            top=[(k[:48], round(us / 1e3, 4))
-                 for k, us in by_name.most_common(6)])
+        out[name], by_name = flow_busy(fn)
+        out[name]["top"] = [(k[:48], round(us / 1e3, 4))
+                            for k, us in by_name.most_common(6)]
     return out
 
 
@@ -1081,6 +1199,493 @@ def cascade_phase(device, seed: int):
                 rows_annihilated=eng.stats["rows_annihilated"],
                 spills=eng.stats["spills"], n_levels=eng.n_levels,
                 live_keys=len(oracle.d))
+
+
+# --------------------------------------------------------------------------
+# adaptive phase: the tuner through a write-heavy -> read-heavy shift
+# --------------------------------------------------------------------------
+
+def adaptive_params():
+    """The paper's Table 1 geometry with the reference's canonical
+    shifting policy (`repro.bench.scenarios.ADAPTIVE`) and max_levels 4:
+    the read allocation's eager level-0 fold turns every sealed memory
+    run into a level-1 run, so level 1 spills into level 2, whose runs
+    at max_levels 3 (the deepest, D times wider) would take ~115 GB."""
+    from repro_torch.configs.slsm_paper import paper_params
+    from repro_torch.core.params import TuningPolicy
+    return paper_params(merge_budget=1, range_cand=512, max_levels=4,
+                        tuning=TuningPolicy(mode="adaptive", interval=512,
+                                            eps_floor=1e-4))
+
+
+def shifting_traffic(n: int, seed: int, *, write_frac: float = 0.85,
+                     key_space: int = 2 ** 24, theta: float = 1.1,
+                     lookup_frac: float = 4.0, miss_frac: float = 0.25,
+                     n_ranges: int = 32, span: int = 65_536):
+    """A copy of the reference's `make_shifting` stream
+    (`repro/bench/workloads.py`): phase 1 uniform even inserts with a
+    trickle of lookups, phase 2 Zipf(theta) lookups over the phase-1 keys
+    with a trickle of fresh inserts; a quarter of the lookups absent
+    (key | 1); scan windows of `span` keys centred on phase-1 keys."""
+    import zlib
+    rng = np.random.default_rng((zlib.crc32(b"bench-shifting"), seed))
+
+    def even(count):
+        return (rng.integers(0, key_space // 2, count, dtype=np.int64)
+                * 2).astype(np.int32)
+
+    n1 = max(1, int(n * write_frac))
+    keys1, keys2 = even(n1), even(max(1, n - n1))
+    vals = rng.integers(-2 ** 30, 2 ** 30, n1 + len(keys2), dtype=np.int32)
+    n_lookups = max(2, int(n * lookup_frac))
+    nl1 = max(1, n_lookups // 20)
+
+    def mixed(pool, count):
+        n_miss = int(count * miss_frac)
+        hits = rng.choice(pool, size=count - n_miss, replace=True)
+        miss = rng.choice(keys1, size=n_miss, replace=True) | np.int32(1)
+        out = np.concatenate([hits, miss]).astype(np.int32)
+        rng.shuffle(out)
+        return out
+
+    l1 = mixed(keys1, nl1)
+    distinct = np.unique(keys1)
+    w = 1.0 / np.power(np.arange(1, len(distinct) + 1, dtype=np.float64),
+                       theta)
+    ranks = np.minimum(np.searchsorted(np.cumsum(w / w.sum()),
+                                       rng.random(n_lookups - nl1),
+                                       side="right"), len(distinct) - 1)
+    l2 = mixed(distinct[rng.permutation(len(distinct))[ranks]],
+               n_lookups - nl1)
+    rng.choice(keys1, size=min(4096, 4 * n1), replace=True)   # `absent`
+    centres = rng.choice(keys1, size=n_ranges, replace=True).astype(np.int64)
+    lo = np.maximum(0, centres - span // 2)
+    wins = np.stack([lo, lo + span], axis=1).astype(np.int32)
+    return (keys1, vals[:n1]), (keys2, vals[n1:]), l1, l2, wins
+
+
+class probe_tally:
+    """Within the block, while `active`, record the disk levels of every
+    `bloom_probe_levels` call the engine makes (matched by their filter
+    tensors)."""
+
+    def __init__(self, eng):
+        from repro_torch.engine import backend
+        self.backend, self.eng = backend, eng
+        self.calls, self.active = [], False
+
+    def __enter__(self):
+        real = self.real = self.backend.bloom_probe_levels
+
+        def bloom_probe_levels(stacks, qs):
+            if not self.active:
+                return real(stacks, qs)
+            levels = self.eng.state.levels
+            self.calls.append(tuple(
+                i for i, lv in enumerate(levels)
+                if any(b is lv.blooms for b, _, _ in stacks)))
+            return real(stacks, qs)
+
+        self.backend.bloom_probe_levels = bloom_probe_levels
+        return self
+
+    def __exit__(self, *exc):
+        self.backend.bloom_probe_levels = self.real
+
+
+def adaptive_phase(device, seed: int, n: int, tally, p=None):
+    """The adaptive engine through the shifting stream: writes in stream
+    order between lookup batches of LOOKUP_BATCH (every other one
+    sparse), each batch checked against the numpy oracle; scans at the
+    end. The kernels' launches are counted in `tally` from after
+    `warm()` to the end of the traffic. Returns the engine, its oracle,
+    the record and the phase-1 keys."""
+    import collections
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.engine import SLSM
+    from repro_torch.engine.read_path import host_occupancy
+    from repro_torch.engine.tuner import retune_filters
+
+    p = p or adaptive_params()
+    (k1, v1), (k2, v2), l1, l2, wins = shifting_traffic(n, seed)
+    eng, oracle = SLSM(p, device=device), DenseOracle(KEY_BITS)
+    alloc_time = collections.defaultdict(float)
+    alloc_lookups = collections.Counter()
+    retunes = []
+    real_retune = eng.apply_retune
+
+    def timed_retune():
+        # the switch on the host clock; then the card's time of the same
+        # rebuild, profiled apart (at the active allocation a rebuild is
+        # a bitwise no-op, and it launches none of the counted kernels)
+        clock, levels = Clock(), eng.n_levels
+        with clock:
+            real_retune()
+        with profiled, profile(activities=[ProfilerActivity.CPU,
+                                           ProfilerActivity.CUDA]) as prof:
+            retune_filters(eng.p_active, eng.state)
+        retunes.append(dict(
+            to=eng.tuner.active, levels=levels, wall_ms=clock.total * 1e3,
+            device_ms=sum(device_us_by_name(prof).values()) / 1e3))
+
+    eng.apply_retune = timed_retune
+    eng.warm()          # builds the kernels, runs each read op per preset
+    seen, probes = set(), []
+    n_batches = [0, 0]
+    write_clock, profiled = Clock(), Clock()   # the latter inside the former
+
+    def phase(keys, vals, lookups):
+        batches = max(1, -(-lookups.size // LOOKUP_BATCH))
+        cut = np.linspace(0, keys.size, batches + 1).astype(np.int64)
+        for b in range(batches):
+            ks, vs = keys[cut[b]:cut[b + 1]], vals[cut[b]:cut[b + 1]]
+            with write_clock:
+                eng.insert(ks, vs)
+            oracle.insert(ks, vs)
+            seen.add(eng.tuner.active)
+            qs = lookups[b * LOOKUP_BATCH:(b + 1) * LOOKUP_BATCH]
+            if not qs.size:
+                continue
+            sparse = bool(sum(n_batches) % 2)
+            alloc = eng.tuner.active
+            clock, made = Clock(), len(levels_probed.calls)
+            levels_probed.active = True
+            with clock:
+                vals_q, found = eng.lookup_many(qs, sparse=sparse)
+            levels_probed.active = False
+            # each batch's one probe call against the levels holding a run
+            probes.append((levels_probed.calls[made:], tuple(
+                i for i, r in enumerate(host_occupancy(eng.state)[1]) if r)))
+            way = f"{alloc} {'sparse' if sparse else 'dense'}"
+            alloc_time[way] += clock.total
+            alloc_lookups[way] += qs.size
+            oracle.check_lookups(qs, vals_q, found,
+                                 f"adaptive {'sparse' if sparse else 'dense'}"
+                                 f" lookups ({alloc})")
+            n_batches[sparse] += 1
+            seen.add(eng.tuner.active)
+
+    with tally, probe_tally(eng) as levels_probed:
+        phase(k1, v1, l1)
+        reached_write = "write" in seen
+        phase(k2, v2, l2)
+        eng.apply_retune = real_retune
+        n_trunc = 0
+        for i in range(0, len(wins), SCAN_BATCH):
+            w = wins[i:i + SCAN_BATCH]
+            k, v, c, tr = eng.range_many(w)
+            check_scans(oracle, w, k, v, c, tr)
+            n_trunc += int(tr.sum())
+        qs = l2[-LOOKUP_BATCH:]
+        dense, sparse = eng.lookup_many(qs), eng.lookup_many(qs, sparse=True)
+    both_ways = all(np.array_equal(a, b) for a, b in zip(dense, sparse))
+    occ = host_occupancy(eng.state)
+    left_out = sum(1 for calls, occupied in probes
+                   if calls == [occupied] and 0 not in occupied)
+    wrong = [c for c in probes if c[0] != [c[1]]]
+    rec = dict(
+        params=dict(R=p.R, Rn=p.Rn, D=p.D, mu=p.mu, eps=p.eps,
+                    max_levels=p.max_levels, merge_budget=p.merge_budget,
+                    range_cand=p.range_cand, interval=p.tuning.interval,
+                    eps_floor=p.tuning.eps_floor),
+        writes=int(k1.size + k2.size), lookups=int(l1.size + l2.size),
+        dense_batches=n_batches[0], sparse_batches=n_batches[1],
+        scans=len(wins), scans_truncated=n_trunc,
+        insert_ops_per_s=(k1.size + k2.size) / (write_clock.total
+                                                - profiled.total),
+        lookups_per_s_by_allocation_and_search={
+            a: alloc_lookups[a] / alloc_time[a] for a in alloc_lookups},
+        retunes=retunes, allocations_seen=sorted(seen),
+        reached_write_in_phase_1=reached_write, active_at_end=eng.tuner.active,
+        read_frac=eng.tuner.read_frac, probe_samples=eng.tuner._n_samples,
+        level_candidates=eng.tuner.level_candidates.tolist(),
+        level_hits=eng.tuner.level_hits.tolist(),
+        run_count=occ[0], level_runs=list(occ[1]),
+        probe_launch_levels={"+".join(map(str, k)) or "none": v
+                             for k, v in collections.Counter(
+                                 levels_probed.calls).items()},
+        lookups_with_level_0_left_out=left_out,
+        dense_equals_sparse_at_end=both_ways,
+        stats={k: int(v) for k, v in eng.stats.items()})
+    log("adaptive " + json.dumps(rec))
+    if not (both_ways and reached_write and eng.tuner.active == "read"
+            and eng.stats["retunes"] >= 2 and eng.tuner._n_samples >= 1
+            and occ[1][0] == 0 and left_out and not wrong):
+        raise AssertionError(f"adaptive phase: {rec}; probes whose levels "
+                             f"differ from the occupied ones: {wrong[:4]}")
+    # the device half of a RETUNE at this state: every resident filter
+    # rebuilt at the active allocation (what a switch rebuilds)
+    rec["retune_rebuild"] = dict(
+        levels=eng.n_levels,
+        device_ms=device_ms(lambda: retune_filters(eng.p_active, eng.state),
+                            2, warmup=1),
+        wall_ms=wall_ms(lambda: retune_filters(eng.p_active, eng.state), 2,
+                        warmup=0))
+    torch.cuda.empty_cache()
+    return eng, oracle, rec, k1
+
+
+def adaptive_profile(eng, seed: int):
+    """Device-busy share of each adaptive flow at the phase's end
+    (`flow_busy`): dense and sparse lookups, scans, and a write trickle,
+    whose pairs are returned for the oracle."""
+    rng = np.random.default_rng(seed + 5)
+    qs = rng.integers(0, 2 ** KEY_BITS, 4 * LOOKUP_BATCH, dtype=np.int32)
+    ks = rng.integers(0, 2 ** (KEY_BITS - 1), 2 * eng.p.Rn,
+                      dtype=np.int32) * 2
+    lo = rng.integers(0, 2 ** KEY_BITS - 256, 2 * SCAN_BATCH, dtype=np.int32)
+    wins = np.stack([lo, lo + 256], axis=1)
+    flows = {
+        "lookup dense": lambda: [eng.lookup_many(qs[i:i + LOOKUP_BATCH])
+                                 for i in range(0, qs.size, LOOKUP_BATCH)],
+        "lookup sparse": lambda: [
+            eng.lookup_many(qs[i:i + LOOKUP_BATCH], sparse=True)
+            for i in range(0, qs.size, LOOKUP_BATCH)],
+        "scan": lambda: [eng.range_many(wins[i:i + SCAN_BATCH])
+                         for i in range(0, len(wins), SCAN_BATCH)],
+        "write trickle": lambda: eng.insert(ks, ks),
+    }
+    return {name: flow_busy(fn)[0] for name, fn in flows.items()}, (ks, ks)
+
+
+# --------------------------------------------------------------------------
+# tape phase: coalesced mixed-op windows through run_tape
+# --------------------------------------------------------------------------
+
+TAPE_WINDOWS = 512
+# keys a write chunk carries on the adaptive engine: every sealed run
+# becomes its own level-1 run under the read allocation, and level 2
+# fills after 400 of them, so its writes are cut from 1-800 to 1-16
+TAPE_WRITE_MAX = 16
+SCALED_KEYS = 2 ** 16   # the scaled tape's even keys (its deepest level
+                        # holds 131,072)
+SCALED_WINDOWS = 256    # ~0.4 s each on an H100, two or more compactions
+
+
+def tape_windows(rng, n_windows: int, pool: np.ndarray, write_max: int,
+                 fresh: bool = True):
+    """Windows of 4-64 chunks: writes half of them (1-`write_max` even
+    keys, fresh or, without `fresh`, from `pool`; a tenth deletes of
+    `pool` keys at weight -1, at the chunk's tail, so that the ops one
+    by one replay a chunk as one insert and one delete), lookups two
+    fifths (1-800 `pool` keys, a quarter absent), ranges a tenth (1-4
+    windows of 256 keys)."""
+    from repro_torch.engine.tape import TapeChunk
+    out = []
+    for _ in range(n_windows):
+        chunks = []
+        for _ in range(int(rng.integers(4, 65))):
+            u = rng.random()
+            if u < 0.5:
+                m = int(rng.integers(1, write_max + 1))
+                ks = ((rng.integers(0, 2 ** (KEY_BITS - 1), m) * 2).astype(
+                    np.int32) if fresh else rng.choice(pool, m))
+                dele = np.arange(m) >= m - rng.binomial(m, 0.1)
+                ks[dele] = rng.choice(pool, int(dele.sum()))
+                vs = np.where(dele, 0, rng.integers(-2 ** 31, 2 ** 31 - 1, m,
+                                                    dtype=np.int64))
+                chunks.append(TapeChunk("write", ks, vs.astype(np.int32),
+                                        np.where(dele, -1, 1).astype(
+                                            np.int32)))
+            elif u < 0.9:
+                m = int(rng.integers(1, 801))
+                qs = rng.choice(pool, m)
+                qs[: m // 4] |= 1
+                chunks.append(TapeChunk("lookup", qs.astype(np.int32),
+                                        np.zeros(m, np.int32)))
+            else:
+                m = int(rng.integers(1, 5))
+                lo = rng.choice(pool, m).astype(np.int32)
+                chunks.append(TapeChunk("range", lo, lo + 256))
+        out.append(chunks)
+    return out
+
+
+def split_chunks(chunks, p):
+    """The same op stream in chunks of at most `chunk_capacity(p, kind)`
+    (a geometry with smaller runs takes more, smaller chunks)."""
+    from repro_torch.engine.tape import TapeChunk, chunk_capacity
+    out = []
+    for ch in chunks:
+        cap = chunk_capacity(p, ch.kind)
+        for i in range(0, len(ch.keys), cap):
+            out.append(TapeChunk(ch.kind, ch.keys[i:i + cap],
+                                 ch.vals[i:i + cap],
+                                 None if ch.wts is None
+                                 else ch.wts[i:i + cap]))
+    return out
+
+
+def check_tape(oracle, chunks, results, what: str):
+    """Replay a tape's writes into the oracle in stream order; every
+    lookup and scan against it."""
+    for ch, res in zip(chunks, results):
+        if ch.kind == "write":
+            oracle.apply(ch.keys, ch.vals, ch.wts)
+        elif ch.kind == "lookup":
+            oracle.check_lookups(ch.keys, res[0], res[1], what)
+        else:
+            check_scans(oracle, np.stack([ch.keys, ch.vals], 1), *res)
+
+
+def op_by_op(eng, chunks):
+    """The chunks as the engine's own calls, one by one: writes as
+    insert/delete runs in lane order, lookups `lookup_many`, ranges
+    `range_many`. Returns the results in `run_tape`'s form."""
+    out = []
+    for ch in chunks:
+        if ch.kind == "write":
+            edges = np.flatnonzero(np.diff(ch.wts)) + 1
+            for ks, vs, ws in zip(*(np.split(a, edges)
+                                    for a in (ch.keys, ch.vals, ch.wts))):
+                if ws[0] > 0:
+                    eng.insert(ks, vs)
+                else:
+                    eng.delete(ks)
+            out.append(None)
+        elif ch.kind == "lookup":
+            out.append(eng.lookup_many(ch.keys))
+        else:
+            out.append(eng.range_many(np.stack([ch.keys, ch.vals], 1)))
+    return out
+
+
+def count_syncs(fn):
+    """fn() with PyTorch's CUDA sync debug mode on: the result and the
+    blocking reads it made (synchronizing operations), by call site."""
+    import collections
+    import warnings
+
+    import torch
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return out, collections.Counter(
+        f"{Path(w.filename).name}:{w.lineno}" for w in caught
+        if "synchroniz" in str(w.message))
+
+
+class segment_tally:
+    """Within the blocks, the tape segments (`tape.exec_tape` calls) each
+    engine runs, by engine."""
+
+    def __init__(self):
+        import collections
+        self.by_engine = collections.Counter()
+
+    def __enter__(self):
+        from repro_torch.engine import tape as TP
+        self.TP, self.real = TP, TP.exec_tape
+
+        def exec_tape(eng, *args):
+            self.by_engine[id(eng)] += 1
+            return self.real(eng, *args)
+
+        TP.exec_tape = exec_tape
+        return self
+
+    def __exit__(self, *exc):
+        self.TP.exec_tape = self.real
+
+
+def tape_phase(seed: int, eng, oracle, pool, n_windows: int, tally):
+    """`n_windows` windows through `run_tape` on the adaptive engine as
+    it ends (read allocation; writes of 1-TAPE_WRITE_MAX keys), every
+    result against the oracle, one `voluntary_steps(1)` between windows,
+    whose launches `tally` counts."""
+    import collections
+
+    from repro_torch.engine.read_path import host_occupancy
+    rng = np.random.default_rng(seed + 7)
+    windows = [split_chunks(w, eng.p)
+               for w in tape_windows(rng, n_windows, pool, TAPE_WRITE_MAX)]
+    clock, syncs = Clock(), collections.Counter()
+    segments = segment_tally()
+    with segments:
+        for i, chunks in enumerate(windows):
+            with clock, tally:
+                res, sites = count_syncs(
+                    lambda: eng.run_tape(chunks, bool(i % 2)))
+                eng.voluntary_steps(1)
+            syncs.update(sites)
+            check_tape(oracle, chunks, res, f"tape window {i}")
+    rec = dict(windows=n_windows, **tape_mix(windows),
+               active=eng.tuner.active,
+               segments=segments.by_engine[id(eng)],
+               window_ms=clock.total * 1e3 / n_windows,
+               blocking_reads_a_window=sum(syncs.values()) / n_windows,
+               blocking_reads_by_site=dict(syncs.most_common(8)),
+               level_runs=list(host_occupancy(eng.state)[1]),
+               stats={k: int(v) for k, v in eng.stats.items()})
+    log("tape " + json.dumps(rec))
+    return rec
+
+
+def tape_scaled_phase(device, seed: int, n_windows: int, tally):
+    """`n_windows` windows with the issue's 1-800-key writes (over
+    SCALED_KEYS keys) through `run_tape` and op by op on two engines at
+    the cascade's scaled geometry, `voluntary_steps(1)` between windows:
+    answers equal and exact against the oracle, >= 1 compaction. `tally`
+    counts the `run_tape` engine's launches (not the op-by-op one's)."""
+    import collections
+
+    from repro_torch.core.params import SLSMParams
+    from repro_torch.engine import SLSM
+    rng = np.random.default_rng(seed + 8)
+    p = SLSMParams(R=8, Rn=256, eps=1e-3, D=4, m=1.0, mu=64, max_levels=3,
+                   merge_budget=1, range_cand=512)
+    keys = np.arange(0, 2 * SCALED_KEYS, 2, dtype=np.int32)
+    windows = [split_chunks(w, p)
+               for w in tape_windows(rng, n_windows, keys, 800, fresh=False)]
+    tape, ops = SLSM(p, device=device), SLSM(p, device=device)
+    scaled_oracle = DenseOracle(KEY_BITS)
+    t_clock, o_clock, t_syncs = Clock(), Clock(), collections.Counter()
+    segments = segment_tally()
+    for i, chunks in enumerate(windows):
+        with t_clock, tally, segments:
+            got, sites = count_syncs(lambda: tape.run_tape(chunks))
+            tape.voluntary_steps(1)
+        t_syncs.update(sites)
+        with o_clock:
+            want = op_by_op(ops, chunks)
+            ops.voluntary_steps(1)
+        for ch, g, w in zip(chunks, got, want):
+            if w is not None and not all(np.array_equal(a, b)
+                                         for a, b in zip(g, w)):
+                raise AssertionError(f"tape window {i}: run_tape and the "
+                                     f"ops one by one differ ({ch.kind})")
+        check_tape(scaled_oracle, chunks, got, f"scaled tape window {i}")
+    rec = dict(
+        windows=n_windows,
+        params=dict(R=p.R, Rn=p.Rn, D=p.D, mu=p.mu, max_levels=p.max_levels),
+        **tape_mix(windows), segments=segments.by_engine[id(tape)],
+        tape_window_ms=t_clock.total * 1e3 / n_windows,
+        op_by_op_window_ms=o_clock.total * 1e3 / n_windows,
+        blocking_reads_a_window=sum(t_syncs.values()) / n_windows,
+        blocking_reads_by_site=dict(t_syncs.most_common(8)),
+        seals=tape.stats["seals"], flushes=tape.stats["flushes"],
+        spills=tape.stats["spills"], compactions=tape.stats["compactions"],
+        n_levels=tape.n_levels)
+    if tape.stats["compactions"] < 1:
+        raise AssertionError(f"scaled tape: no compaction {rec}")
+    log("tape scaled " + json.dumps(rec))
+    return rec
+
+
+def tape_mix(windows) -> dict:
+    """Chunks by kind and write keys of a list of windows."""
+    import collections
+    return dict(chunks=dict(collections.Counter(
+        ch.kind for w in windows for ch in w)),
+        write_keys=sum(len(ch.keys) for w in windows for ch in w
+                       if ch.kind == "write"))
 
 
 # --------------------------------------------------------------------------
@@ -1594,6 +2199,8 @@ def main() -> int:
     device = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
+    device_line = json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": count}})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip()
@@ -1674,6 +2281,37 @@ def main() -> int:
     log(f"cascade [{card}]: " + json.dumps(cascade))
     torch.cuda.empty_cache()
 
+    # the adaptive engine's traffic (after its warm-up), the tape windows
+    # on it, and the scaled engine's tapes: each path's launches counted
+    # from 0 just before its own calls and read just after them
+    tallies = {path: LaunchTally(counters, contract)
+               for path in ("adaptive", "tape", "tape scaled")}
+    eng, oracle, adaptive, pool = adaptive_phase(
+        device, args.seed, ADAPTIVE_N, tallies["adaptive"])
+    log(f"adaptive [{card}]: " + json.dumps(adaptive))
+    flows, extra = adaptive_profile(eng, args.seed)
+    oracle.insert(*extra)
+    for flow, rec in flows.items():
+        log(f"adaptive profile {flow} [{card}]: " + json.dumps(rec))
+    tape = tape_phase(args.seed, eng, oracle, pool, TAPE_WINDOWS,
+                      tallies["tape"])
+    log(f"tape [{card}]: " + json.dumps(tape))
+    del eng, oracle
+    torch.cuda.empty_cache()
+    tape = tape_scaled_phase(device, args.seed, SCALED_WINDOWS,
+                             tallies["tape scaled"])
+    log(f"tape scaled [{card}]: " + json.dumps(tape))
+    by_path = {"main": launches}
+    for path, tally in tallies.items():
+        by_path[path] = tally.counts
+        log(f"{path} launches: {tally.counts} contract rounds: "
+            f"{tally.rounds}")
+        missing = [k for k, n in tally.counts.items()
+                   if n == 0 and k != "lsm_attention"]
+        if missing or any(tally.rounds.values()):
+            raise AssertionError(f"{path} path: never launched {missing}, "
+                                 f"rounds {tally.rounds}")
+
     lsm_rec = lsm_kernel_phase(device, args.seed)
     model, caches, serve = lm_serve_phase(device, args.seed, counters)
     log(f"lm_serve [{card}]: " + json.dumps(serve))
@@ -1687,12 +2325,13 @@ def main() -> int:
 
     for rec in kernels:
         rec["launches"] = launches[rec["name"]]
+        rec["launches_by_path"] = {k: v[rec["name"]]
+                                   for k, v in by_path.items()}
         rec["card"] = card
     lsm_rec.update(launches=serve["launches"]["lsm_attention"], card=card)
     kernels.append(lsm_rec)
     print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": count}}))
+    print(device_line)
     return 0
 
 

@@ -22,8 +22,8 @@ rows of a range scan), cand_factor (sparse lookup bound), range_cand
 (per-scan candidate budget; None = total resident capacity, always
 exact). merge_budget paces the Do-Merge cascade (0 = synchronous).
 The tuning knobs (eps_per_level, eps_mem, r_eff, fence_stride, tuning)
-keep the reference's meaning; the adaptive tuner itself is not ported
-yet, so `SLSM` refuses `tuning.mode == "adaptive"`.
+keep the reference's meaning: with ``tuning.mode == "adaptive"`` the
+engine's tuner (`repro_torch.engine.tuner`) moves them at run time.
 """
 from __future__ import annotations
 
@@ -40,10 +40,13 @@ SEQ_NONE = np.int32(-1)                        # "no match" sequence number
 
 @dataclass(frozen=True)
 class TuningPolicy:
-    """Controller policy of the adaptive tuner (reference DESIGN.md §9).
-
-    Only ``mode="static"`` runs in the port so far; the fields are kept
-    so parameter sets convert one to one between the two packages."""
+    """Controller policy of the adaptive tuner (reference DESIGN.md §9):
+    ``mode="static"`` never retunes; ``mode="adaptive"`` re-partitions
+    `budget_bytes` (None: the static allocation's own bytes) between
+    write buffer, filters (no denser than `eps_floor`; `eps_write` for
+    the write preset) and fence view, deciding every `interval` ops from
+    an EWMA (`ewma`) of the read share against `read_heavy` and
+    `write_heavy`."""
 
     mode: str = "static"
     budget_bytes: int | None = None

@@ -7,7 +7,9 @@ Layer map:
   levels.py     — disk-tier state: runs, Bloom filters, fences, min/max
   compaction.py — the Do-Merge cascade ops + tiering/leveling policies
   scheduler.py  — the cascade as paced, bounded MergeSteps (merge_budget)
-  read_path.py  — dense lookups, range scans, aggregates
+  tuner.py      — the adaptive allocation controller and its RETUNE rebuild
+  tape.py       — the mixed-op tape (coalesced write/lookup/range window)
+  read_path.py  — dense and sparse lookups, probe telemetry, scans, aggregates
   engine.py     — the host-side `SLSM` engine
 """
 from repro_torch.engine.compaction import (CompactionPolicy,  # noqa: F401

@@ -1,9 +1,10 @@
 """Batching policy: the pad/bucket grid of the batched entry points.
 
 The port keeps the reference's grid (`repro.engine.batching`) so both
-engines see the same padded widths: `bucket_pow2` for lookups,
-`RANGE_BUCKETS` for scans, KEY_EMPTY padding, and `range_many_host`, the
-pad/dispatch/trim helper of `range_many`.
+engines see the same padded widths: `bucket_pow2` for lookups (the
+coarser `ADAPTIVE_BUCKETS` under adaptive tuning), `RANGE_BUCKETS` for
+scans, `TAPE_BUCKETS` for mixed-op tape slots, KEY_EMPTY padding, and
+`range_many_host`, the pad/dispatch/trim helper of `range_many`.
 """
 from __future__ import annotations
 
@@ -12,8 +13,14 @@ import torch
 
 from repro_torch.core.params import KEY_EMPTY
 
+# adaptive engines quantize batched-lookup lanes to this coarse grid
+ADAPTIVE_BUCKETS = (256, 1024, 4096)
+
 # batched range scans quantize to this scan-count grid
 RANGE_BUCKETS = (8, 32)
+
+# mixed-op tapes quantize their slot count to this grid (NOP slots pad)
+TAPE_BUCKETS = (4, 16, 64)
 
 
 def bucket_pow2(n: int, floor: int = 16) -> int:
@@ -28,12 +35,27 @@ def pad_to(qs: np.ndarray, width: int) -> np.ndarray:
     return out
 
 
-def range_bucket(n: int) -> int:
-    """Smallest scan-count bucket holding n lanes (pow2 past the grid)."""
-    for b in RANGE_BUCKETS:
+def _grid_bucket(grid: tuple, n: int) -> int:
+    """Smallest bucket of `grid` holding n (pow2 past the grid)."""
+    for b in grid:
         if n <= b:
             return b
     return bucket_pow2(n)
+
+
+def adaptive_bucket(n: int) -> int:
+    """Smallest adaptive lookup bucket holding n lanes."""
+    return _grid_bucket(ADAPTIVE_BUCKETS, n)
+
+
+def range_bucket(n: int) -> int:
+    """Smallest scan-count bucket holding n lanes."""
+    return _grid_bucket(RANGE_BUCKETS, n)
+
+
+def tape_bucket(n: int) -> int:
+    """Smallest tape-slot bucket holding n slots."""
+    return _grid_bucket(TAPE_BUCKETS, n)
 
 
 def pad_windows(ranges, device):

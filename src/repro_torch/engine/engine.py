@@ -7,10 +7,13 @@ barrier). The engine runs on the CUDA card unless the caller passes
 ``device="cpu"``; on the CPU every kernel slot runs its plain PyTorch
 version, on the card its CUDA kernel.
 
-This slice covers the single tree with durability off and static
-tuning: write, dense point read, range read, aggregates. The adaptive
-tuner, the sparse lookup, the WAL and the mixed-op tape raise
-NotImplementedError.
+With ``tuning.mode == "adaptive"`` the `Tuner` moves one byte budget
+between the write buffer, the filters and the fence view as the mix
+shifts (reference DESIGN.md §9): every state change runs at the active
+allocation `p_active`, a decided switch is a scheduler RETUNE step, and
+lookups leave out the structures that hold no run. `run_tape` executes a
+coalesced window of mixed ops (`engine.tape`). Durability (the WAL and
+snapshots) is not ported and raises.
 """
 from __future__ import annotations
 
@@ -21,14 +24,21 @@ import torch
 
 from repro_torch.core.params import KEY_EMPTY, SLSMParams
 from repro_torch.device import resolve_device
-from repro_torch.engine.batching import (bucket_pow2, pad_to, pad_windows,
+from repro_torch.engine import tape as TP
+from repro_torch.engine.batching import (ADAPTIVE_BUCKETS, adaptive_bucket,
+                                         bucket_pow2, pad_to, pad_windows,
                                          range_many_host)
 from repro_torch.engine.compaction import CompactionPolicy, TieringPolicy
 from repro_torch.engine.memtable import init_state, stage_append
-from repro_torch.engine.read_path import (aggregate_many, lookup_batch,
-                                          lookup_many, range_many,
-                                          range_query)
+from repro_torch.engine.read_path import (aggregate_many, level_probe_stats,
+                                          lookup_batch, lookup_many,
+                                          range_many, range_query)
 from repro_torch.engine.scheduler import MergeScheduler
+from repro_torch.engine.tuner import (READ, ReadModePolicy, Tuner,
+                                      retune_filters)
+
+# width of the tuner's sampled probe-telemetry pass
+PROBE_SAMPLE = 256
 
 
 def reject_reserved(keys: np.ndarray, vals: np.ndarray | None = None,
@@ -56,12 +66,18 @@ class SLSM:
         if durability is not None:
             raise NotImplementedError("durability (WAL/snapshots) is not "
                                       "ported yet")
-        if self.p.tuning.mode == "adaptive":
-            raise NotImplementedError("the adaptive tuner is not ported yet")
         self.device = resolve_device(device)
         self.policy = policy or TieringPolicy()
         self.policy.validate(self.p)
         self.state = init_state(self.p, self.device)
+        # (run_count, n_runs a level) as the last scheduler step left it
+        # (kept under adaptive tuning): lookups skip the empty structures
+        # by it without a read of their own
+        self.runs = (0, ())
+        # the tuner's allocation applied to p (== p under static tuning)
+        self.p_active = self.p
+        self.tuner = Tuner(self)
+        self._read_policy = ReadModePolicy()
         self.scheduler = MergeScheduler(self)
         self.stats = collections.Counter(seals=0, flushes=0, spills=0,
                                          compactions=0, backlog_peak=0,
@@ -89,6 +105,7 @@ class SLSM:
     def _insert(self, keys: np.ndarray, vals: np.ndarray,
                 wts: np.ndarray) -> None:
         self.stats["writes"] += len(keys)
+        self.tuner.note_writes(len(keys))
         rn = self.p.Rn
         for off in range(0, len(keys), rn):
             ck, cv = keys[off:off + rn], vals[off:off + rn]
@@ -99,8 +116,8 @@ class SLSM:
                 cv = np.pad(cv, (0, rn - n))
                 cw = np.pad(cw, (0, rn - n))
             chunk = self._tensor(np.stack([ck, cv, cw]))
-            self.state = stage_append(self.p, self.state, chunk[0], chunk[1],
-                                      chunk[2], n)
+            self.state = stage_append(self.p_active, self.state, chunk[0],
+                                      chunk[1], chunk[2], n)
             self.scheduler.on_chunk()
 
     def delete(self, keys) -> None:
@@ -111,44 +128,81 @@ class SLSM:
         self._insert(keys, np.zeros_like(keys), np.full_like(keys, -1))
 
     def drain(self) -> None:
-        """Merge barrier: retire every pending maintenance step."""
+        """Merge barrier: retire every pending maintenance step, a pending
+        retune included."""
         self.scheduler.drain()
 
-    def run_tape(self, chunks, sparse: bool = False):
-        """The mixed-op tape is not ported yet."""
-        raise NotImplementedError("run_tape (mixed-op tape) is not ported "
-                                  "yet")
+    def voluntary_steps(self, budget: int) -> int:
+        """Roll the tuner's decision boundary, then run up to `budget`
+        ready maintenance steps (a decided RETUNE rides the backlog like
+        any merge) — the serving governor's entry point between windows.
+        Returns how many steps ran."""
+        self.tuner.decide()
+        return self.scheduler.voluntary_steps(budget)
+
+    def warm(self) -> None:
+        """Build every kernel and launch each read op once at every
+        preset's allocation (the configured one under static tuning), so
+        no read — the first after a RETUNE included — pays a build. The
+        answers are discarded."""
+        if self.device.type == "cuda":
+            from repro_torch.kernels import _build
+            _build.build_all()
+        presets = ([a.apply(self.p) for a in self.tuner.presets.values()]
+                   if self.tuner.enabled else [self.p])
+        qs = self._tensor(np.full(ADAPTIVE_BUCKETS[0], KEY_EMPTY, np.int32))
+        _, los, his = pad_windows([(0, 0)], self.device)
+        for pa in presets:
+            for sparse in (False, True):
+                lookup_many(pa, self.state, qs, 0, sparse, self.tuner.enabled,
+                            self.runs)
+            range_many(pa, self.state, los, his, 0)
+            aggregate_many(pa, self.state, los, his, 0)
+            if self.tuner.enabled:
+                level_probe_stats(pa, self.state, qs[:PROBE_SAMPLE])
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     # -- read path ----------------------------------------------------------
+    def _on_reads(self, qs: np.ndarray) -> None:
+        """Count the reads; under adaptive tuning also feed the tuner,
+        keep the batch for write-boundary probe telemetry and roll the
+        controller (a decision binds at the next write chunk)."""
+        self.stats["reads"] += qs.size
+        t = self.tuner
+        if not t.enabled:
+            return
+        t.note_reads(qs.size)
+        t.last_queries = qs[:PROBE_SAMPLE].copy()
+        self.scheduler.on_read()
+
     def lookup(self, keys, sparse: bool = False):
         """Point lookups (paper 2.7): newest-to-oldest across stage, memory
-        runs, then Bloom/fence-gated disk levels. Returns numpy
-        (vals, found)."""
-        if sparse:
-            raise NotImplementedError("the sparse (Bloom-compacted) lookup "
-                                      "is not ported yet")
+        runs, then Bloom/fence-gated disk levels (`sparse`: the
+        Bloom-compacted disk search). Returns numpy (vals, found)."""
         qs = np.asarray(keys, np.int32).reshape(-1)
         reject_reserved(qs, op="lookup")
-        self.stats["reads"] += qs.size
-        vals, found = lookup_batch(self.p, self.state, self._tensor(qs))
+        self._on_reads(qs)
+        vals, found = lookup_batch(self.p_active, self.state,
+                                   self._tensor(qs), sparse,
+                                   self.tuner.enabled, self.runs)
         return vals.cpu().numpy(), found.cpu().numpy()
 
     def lookup_many(self, keys, sparse: bool = False):
-        """Batched multi-key fast path: the queries padded to a
-        power-of-two bucket, one Bloom-probe launch over every disk level
-        and one fence-search launch a level for all of them. Same results
-        as `lookup`."""
-        if sparse:
-            raise NotImplementedError("the sparse (Bloom-compacted) lookup "
-                                      "is not ported yet")
+        """Batched multi-key fast path: the queries padded to a bucket
+        (`ADAPTIVE_BUCKETS` under adaptive tuning, else a power of two),
+        one Bloom-probe launch over every disk level and, dense, one
+        fence-search launch a level. Same results as `lookup`."""
         qs = np.asarray(keys, np.int32).reshape(-1)
         reject_reserved(qs, op="lookup_many")
         if qs.size == 0:
             return np.zeros(0, np.int32), np.zeros(0, bool)
-        self.stats["reads"] += qs.size
-        vals, found = lookup_many(self.p, self.state,
-                                  self._tensor(pad_to(qs, bucket_pow2(
-                                      qs.size))), qs.size)
+        self._on_reads(qs)
+        width = (adaptive_bucket(qs.size) if self.tuner.enabled
+                 else bucket_pow2(qs.size))
+        vals, found = lookup_many(self.p_active, self.state,
+                                  self._tensor(pad_to(qs, width)), qs.size,
+                                  sparse, self.tuner.enabled, self.runs)
         return (vals[:qs.size].cpu().numpy(),
                 found[:qs.size].cpu().numpy())
 
@@ -156,7 +210,7 @@ class SLSM:
         """Device-resident range query [lo, hi) (paper 2.9): tensors
         ``(keys (max_range,), vals, count, truncated)``, rows KEY_EMPTY
         padded past ``count``."""
-        return range_query(self.p, self.state, lo, hi)
+        return range_query(self.p_active, self.state, lo, hi)
 
     def range(self, lo: int, hi: int, return_truncated: bool = False):
         """Range query [lo, hi): newest-wins, deleted keys dropped,
@@ -172,7 +226,8 @@ class SLSM:
         engine. Returns numpy ``(keys (Q, max_range), vals, counts (Q,),
         truncated (Q,))``."""
         return range_many_host(
-            lambda los, his, n: range_many(self.p, self.state, los, his, n),
+            lambda los, his, n: range_many(self.p_active, self.state, los,
+                                           his, n),
             self.p.max_range, ranges, self.device)
 
     def aggregate_many(self, ranges):
@@ -183,7 +238,7 @@ class SLSM:
         if q == 0:
             return (np.zeros(0, np.int32), np.zeros(0, np.int32),
                     np.zeros(0, bool))
-        c, s, t = aggregate_many(self.p, self.state, los, his, q)
+        c, s, t = aggregate_many(self.p_active, self.state, los, his, q)
         return (c[:q].cpu().numpy(), s[:q].cpu().numpy(),
                 t[:q].cpu().numpy())
 
@@ -196,6 +251,142 @@ class SLSM:
         """Sum of live values over [lo, hi) (int32 wraparound)."""
         _, s, _ = self.aggregate_many([(lo, hi)])
         return int(s[0])
+
+    # -- mixed-op tape (engine.tape) ------------------------------------------
+    def tape_write_capacity(self) -> int:
+        """Max write keys the next `run_tape` segment may carry: its
+        headroom pass must reserve one free run slot per seal the writes
+        can force, and flushing only brings `run_count` down to
+        ``run_count % runs_merged_eff``."""
+        p = self.p_active
+        rc, sc = int(self.state.run_count), int(self.state.stage_count)
+        while sc >= p.Rn:       # ensure_stage_space() seals a full stage
+            if rc >= p.R:
+                rc -= p.runs_merged_eff
+            rc += 1
+            sc -= p.Rn
+        free = p.R - rc % p.runs_merged_eff
+        return (free + 1) * p.Rn - 1 - sc
+
+    def run_tape(self, chunks, sparse: bool = False):
+        """Execute a coalesced mixed-op window, in stream order.
+
+        `chunks` is a sequence of `tape.TapeChunk`s (or ``(kind, keys,
+        vals)`` tuples). Results are per chunk, in order: writes -> the
+        seals the chunk made, lookups -> ``(vals, found)``, ranges ->
+        ``(keys, vals, counts, truncated)``, numpy, trimmed to each
+        chunk's op count and equal to what the per-op calls return.
+
+        Before each tape segment the headroom pass runs
+        (`scheduler.ensure_stage_space`, then `reserve_run_slots` for
+        every seal the segment can make); a window whose writes exceed
+        `tape_write_capacity` is cut into segments at write boundaries.
+        Flush, spill, compact and retune stay host steps between tapes.
+        """
+        chunks = [c if isinstance(c, TP.TapeChunk) else TP.TapeChunk(*c)
+                  for c in chunks]
+        if not chunks:
+            return []
+        n_writes = n_reads = 0
+        last_reads = None
+        for ch in chunks:
+            k = np.asarray(ch.keys, np.int32).reshape(-1)
+            if ch.kind == "write":
+                reject_reserved(k, op="tape write")
+                n_writes += k.size
+            elif ch.kind == "lookup":
+                reject_reserved(k, op="tape lookup")
+                n_reads += k.size
+                last_reads = k
+            elif ch.kind != "range":
+                raise ValueError(f"unknown tape chunk kind {ch.kind!r}")
+        results = [0] * len(chunks)
+        # stream-ordered (chunk index, chunk); an oversized write splits
+        # across segments under one index
+        work = list(enumerate(chunks))
+        while work:
+            self.scheduler.ensure_stage_space()
+            budget = self.tape_write_capacity()
+            seg, seg_idx = [], []
+            while work:
+                i, ch = work[0]
+                if ch.kind == "write":
+                    k = np.asarray(ch.keys, np.int32).reshape(-1)
+                    v = np.asarray(ch.vals, np.int32).reshape(-1)
+                    w = (np.ones_like(k) if ch.wts is None
+                         else np.asarray(ch.wts, np.int32).reshape(-1))
+                    if budget <= 0:
+                        break
+                    if k.size > budget:
+                        seg.append(TP.TapeChunk("write", k[:budget],
+                                                v[:budget], w[:budget]))
+                        seg_idx.append(i)
+                        work[0] = (i, TP.TapeChunk("write", k[budget:],
+                                                   v[budget:], w[budget:]))
+                        budget = 0
+                        continue
+                    budget -= k.size
+                seg.append(ch)
+                seg_idx.append(i)
+                work.pop(0)
+            if not seg:
+                raise RuntimeError("tape segmentation made no progress")
+            seals = TP.tape_seal_bound(self.p_active,
+                                       int(self.state.stage_count), seg)
+            if seals:
+                self.scheduler.reserve_run_slots(seals)
+            ys = TP.exec_tape(self, *TP.build_tape(self.p_active, seg),
+                              sparse)
+            for i, res in zip(seg_idx, TP.unpack_tape(self.p_active, seg,
+                                                      ys)):
+                if chunks[i].kind == "write":
+                    results[i] += res       # stats["seals"] booked per seal
+                else:
+                    results[i] = res
+        self.stats["writes"] += n_writes
+        self.stats["reads"] += n_reads
+        self.tuner.note_writes(n_writes)
+        self.tuner.note_reads(n_reads)
+        if self.tuner.enabled and last_reads is not None:
+            self.tuner.last_queries = last_reads[:PROBE_SAMPLE].copy()
+        return results
+
+    def warm_tape(self) -> None:
+        """`warm()`: a tape runs the engine's own read ops, so building
+        the kernels and launching those ops once covers it."""
+        self.warm()
+
+    # -- tuner plumbing ----------------------------------------------------
+    def sample_probe_stats(self) -> None:
+        """One per-level probe-telemetry pass over the most recent read
+        batch (`read_path.level_probe_stats`), called by the scheduler at
+        a write-chunk boundary, folded into the tuner."""
+        qs = self.tuner.last_queries
+        if qs is None:
+            return
+        sample = np.full(PROBE_SAMPLE, KEY_EMPTY, np.int32)
+        sample[:min(PROBE_SAMPLE, qs.size)] = qs[:PROBE_SAMPLE]
+        c, h = level_probe_stats(self.p_active, self.state,
+                                 self._tensor(sample))
+        c, h = torch.stack([c, h]).cpu().numpy()
+        self.tuner.note_probe_stats(c, h)
+
+    @property
+    def policy_active(self) -> CompactionPolicy:
+        """The configured compaction policy, or the eager `ReadModePolicy`
+        while the read allocation is active."""
+        if self.tuner.enabled and self.tuner.active == READ:
+            return self._read_policy
+        return self.policy
+
+    def apply_retune(self) -> None:
+        """The device half of a RETUNE step: swap the active parameter set
+        to the tuner's target allocation and rebuild every resident
+        filter under it (`tuner.retune_filters`)."""
+        alloc = self.tuner.allocation(self.tuner.target)
+        self.p_active = alloc.apply(self.p)
+        self.state = retune_filters(self.p_active, self.state)
+        self.tuner.applied()
 
     # -- stats ----------------------------------------------------------------
     @property

@@ -5,8 +5,23 @@ sealed memory runs, then each disk level — keeping the match with the
 highest seqno; presence is the sign of the newest record's weight. Disk
 levels are gated by min/max windows AND Bloom positives (paper 2.3):
 one `bloom_probe` launch a batch covers every (level, run, query) triple
-(`backend.bloom_probe_levels`), then one `fence_lookup` launch a level
-covers every (run, query) pair (`backend.gated_hits`).
+(`backend.bloom_probe_levels`). Two disk searches follow it:
+
+  dense  — one `fence_lookup` launch a level covers every (run, query)
+           pair (`backend.gated_hits`). Exact; the default.
+  sparse — the gated (run, query) pairs are compacted, in row-major
+           order, to `cand_factor` a query; only those do the fence and
+           page search (torch ops, as in the reference, whose per-pair
+           search is plain jnp). Pairs past the cap are dropped, the
+           pairs the reference drops.
+
+With `skip_empty` (the adaptive engine's read path) a structure that
+holds no run is left out: the memory runs when `run_count` is 0, an
+empty disk level out of the `bloom_probe_levels` stacks and out of its
+fence search. The occupancy comes from the host (`SLSM.runs`, which
+each adaptive scheduler step stores), so a lookup adds no blocking
+read.
+`level_probe_stats` is the tuner's per-level probe telemetry.
 
 Range scans run the fence-pruned scan engine: every structure's window
 bounds come through the fence machinery, the in-window extents are
@@ -16,8 +31,7 @@ gathered front-compacted into one candidate row of width
 same mask to count/sum.
 
 PyTorch runs eagerly, so the reference's `*_impl` forms and their jitted
-wrappers are one function here. Only the dense lookup is ported; the
-sparse (Bloom-compacted) lookup and `level_probe_stats` come later.
+wrappers are one function here.
 """
 from __future__ import annotations
 
@@ -31,6 +45,7 @@ from repro_torch.engine.memtable import SLSMState
 I32 = torch.int32
 _KEY_EMPTY = int(KEY_EMPTY)
 _SEQ_NONE = int(SEQ_NONE)
+_I32_MIN = -(2 ** 31)
 
 
 def wrap_i32(x: torch.Tensor) -> torch.Tensor:
@@ -81,15 +96,16 @@ def search_memory_runs(state: SLSMState, qs: torch.Tensor):
         torch.where(hit, state.buf_wts.gather(1, ic), 0))
 
 
-def bloom_verdicts(p: SLSMParams, levels, qs: torch.Tensor):
-    """Every disk level's Bloom verdicts for Q queries, (D, Q) bool a
-    level, from one `bloom_probe_levels` call (each level with its own
-    k and bits)."""
+def bloom_verdicts(p: SLSMParams, levels, qs: torch.Tensor, which=None):
+    """The Bloom verdicts of the disk levels `which` (default: all of
+    `levels`) for Q queries, (D, Q) bool a level, from one
+    `bloom_probe_levels` call (each level with its own k and bits)."""
+    which = range(len(levels)) if which is None else which
     stacks = []
-    for level, lv in enumerate(levels):
+    for level in which:
         bits, _, kk = p.bloom_geometry(p.level_cap(level),
                                        p.level_eps(level))
-        stacks.append((lv.blooms, kk, bits))
+        stacks.append((levels[level].blooms, kk, bits))
     return BE.bloom_probe_levels(stacks, qs)
 
 
@@ -109,28 +125,142 @@ def search_level_dense(p: SLSMParams, lv: LevelState, level: int,
         torch.where(hit, lv.wts.gather(1, idxc), 0))
 
 
-def lookup_batch(p: SLSMParams, state: SLSMState, qs: torch.Tensor):
+def _run_key(run: torch.Tensor, key: torch.Tensor) -> torch.Tensor:
+    """int64 composite ordered by (run, key) for int32 keys."""
+    return (run << 32) | (key.long() + 2 ** 31)
+
+
+def compact_pairs(gate: torch.Tensor, cap: int) -> torch.Tensor:
+    """The first `cap` set entries of a (D, Q) mask in row-major order,
+    as flat indices d * Q + q, -1 past the last — what the reference's
+    ``jnp.nonzero(gate, size=cap, fill_value=-1)`` keeps. A cumsum and a
+    scatter to the fixed width: no host read of the count."""
+    flat = gate.reshape(-1)
+    rank = torch.cumsum(flat, 0) - 1
+    slot = torch.where(flat & (rank < cap), rank, cap)
+    out = torch.full((cap + 1,), -1, dtype=torch.int64, device=gate.device)
+    out.scatter_(0, slot, torch.arange(flat.numel(), device=gate.device))
+    return out[:cap]
+
+
+def search_level_sparse(p: SLSMParams, lv: LevelState, level: int,
+                        qs: torch.Tensor, bloom: torch.Tensor):
+    """Bloom-compacted disk search: only gated (run, query) pairs do the
+    fence and page search. At most `cand_factor` pairs a query on
+    average; an overflowing gate drops the pairs past the cap (in
+    row-major (run, query) order), which can miss a hit, as in the
+    reference."""
+    q_n = qs.shape[0]
+    gate = BE.in_window(qs, lv.mins, lv.maxs) & bloom            # (D, Q)
+    pair = compact_pairs(gate, q_n * p.cand_factor)
+    ok = pair >= 0
+    d_c = torch.where(ok, pair // q_n, 0)
+    q_c = torch.where(ok, pair % q_n, 0)
+    qk = qs[q_c]
+    stride, mu_eff = p.fence_view(level)
+    fences = BE.strided_fences(lv.fences, stride)
+    n_f, cap = fences.shape[1], lv.keys.shape[1]
+    # each pair's fence: one search over every run's fences as (run, key)
+    # composites, sorted run after run
+    runs = torch.arange(fences.shape[0], device=qs.device)[:, None]
+    f = torch.searchsorted(_run_key(runs, fences).reshape(-1),
+                           _run_key(d_c, qk), right=True) - d_c * n_f - 1
+    # a partial last page of a stride view: the window is pinned inside
+    # the run (keys are sorted, so the wider reach still refines right)
+    st = (f.clamp(0, n_f - 1) * mu_eff).clamp(max=cap - mu_eff)
+    flat = lv.keys.reshape(-1)
+    windows = flat.as_strided((flat.numel() - mu_eff + 1, mu_eff), (1, 1))
+    win = windows[d_c * cap + st]                          # (pairs, mu_eff)
+    off = torch.searchsorted(win, qk[:, None])[:, 0]
+    idx = st + off.clamp(max=mu_eff - 1)
+    at = d_c * cap + idx
+    hit = ((off < mu_eff) & (flat[at] == qk) & (idx < lv.counts[d_c]))
+    seq_c = torch.where(ok & hit, lv.seqs.reshape(-1)[at], _SEQ_NONE)
+    val_c = torch.where(hit, lv.vals.reshape(-1)[at], 0)
+    wt_c = torch.where(hit, lv.wts.reshape(-1)[at], 0)
+    # newest wins a query: amax of the seqs, then of the winners' lanes
+    best_seq = torch.full((q_n,), _SEQ_NONE, dtype=I32, device=qs.device)
+    best_seq.scatter_reduce_(0, q_c, seq_c, "amax")
+    newest = ok & (seq_c == best_seq[q_c]) & (seq_c >= 0)
+    best = []
+    for lane in (val_c, wt_c):
+        out = torch.full((q_n,), _I32_MIN, dtype=I32, device=qs.device)
+        best.append(out.scatter_reduce_(0, q_c,
+                                        torch.where(newest, lane, _I32_MIN),
+                                        "amax"))
+    found = best_seq >= 0
+    return (best_seq, torch.where(found, best[0], 0),
+            torch.where(found, best[1], 0))
+
+
+def host_occupancy(state: SLSMState):
+    """(run_count, n_runs a disk level) read from the state in one
+    blocking transfer."""
+    n = torch.stack([state.run_count]
+                    + [lv.n_runs for lv in state.levels]).tolist()
+    return n[0], tuple(n[1:])
+
+
+def lookup_batch(p: SLSMParams, state: SLSMState, qs: torch.Tensor,
+                 sparse: bool = False, skip_empty: bool = False,
+                 occupancy=None):
     """Point lookups, newest-to-oldest across every structure (paper
-    2.7). Returns (vals, found); deleted keys report found=False."""
+    2.7). Returns (vals, found); deleted keys report found=False.
+
+    `sparse` picks the Bloom-compacted disk search. `skip_empty` leaves
+    out the structures that hold no run, by `occupancy` = (run_count,
+    n_runs a level) as the host knows it (None: read from the state);
+    the answers are the same either way."""
     qs = qs.to(I32)
+    levels = range(len(state.levels))
+    mem_occupied = True
+    if skip_empty:
+        run_count, level_runs = (host_occupancy(state) if occupancy is None
+                                 else occupancy)
+        mem_occupied = run_count > 0
+        levels = [lvl for lvl in levels if level_runs[lvl] > 0]
     best = search_stage(state, qs)
-    best = consider(*best, *search_memory_runs(state, qs))
-    blooms = bloom_verdicts(p, state.levels, qs)
-    for level, (lv, bloom) in enumerate(zip(state.levels, blooms)):
-        best = consider(*best, *search_level_dense(p, lv, level, qs, bloom))
+    if mem_occupied:
+        best = consider(*best, *search_memory_runs(state, qs))
+    search = search_level_sparse if sparse else search_level_dense
+    blooms = bloom_verdicts(p, state.levels, qs, levels)
+    for level, bloom in zip(levels, blooms):
+        best = consider(*best, *search(p, state.levels[level], level, qs,
+                                       bloom))
     best_seq, best_val, best_wt = best
     found = (best_seq >= 0) & (best_wt > 0)
     return torch.where(found, best_val, 0), found
 
 
 def lookup_many(p: SLSMParams, state: SLSMState, qs: torch.Tensor,
-                n_valid: int):
+                n_valid: int, sparse: bool = False, skip_empty: bool = False,
+                occupancy=None):
     """Padded-batch point lookup: `lookup_batch` over qs[:n_valid]; padded
     lanes report found=False, val=0."""
-    vals, found = lookup_batch(p, state, qs)
+    vals, found = lookup_batch(p, state, qs, sparse, skip_empty, occupancy)
     lane = torch.arange(qs.shape[0], device=qs.device) < n_valid
     found = found & lane
     return torch.where(found, vals, 0), found
+
+
+def level_probe_stats(p: SLSMParams, state: SLSMState, qs: torch.Tensor):
+    """Per-level read telemetry for the tuner: ``(candidates, hits)``,
+    each (max_levels,) int32 on the state's device — per disk level, the
+    (run, query) pairs that passed the min/max + Bloom gate and those
+    that were true key matches. One `bloom_probe_levels` call, then one
+    `fence_lookup` launch a level; levels not materialized report 0."""
+    qs = qs.to(I32)
+    cands = torch.zeros(p.max_levels, dtype=I32, device=qs.device)
+    hits = torch.zeros_like(cands)
+    blooms = bloom_verdicts(p, state.levels, qs)
+    for level, (lv, bloom) in enumerate(zip(state.levels, blooms)):
+        stride, mu_eff = p.fence_view(level)
+        fences = BE.strided_fences(lv.fences, stride)
+        gate = BE.in_window(qs, lv.mins, lv.maxs) & bloom
+        idx = BE.fence_lookup_many(qs, fences, lv.keys, lv.counts, mu_eff)
+        cands[level] = gate.sum()
+        hits[level] = (gate & (idx >= 0)).sum()
+    return cands, hits
 
 
 # --------------------------------------------------------------------------

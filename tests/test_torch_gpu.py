@@ -221,6 +221,135 @@ def test_engine_on_card_one_probe_launch_a_lookup_batch(cuda):
     assert eng.n_levels >= 2 and batches > 0
 
 
+def _adaptive_paper():
+    from repro_torch.configs.slsm_paper import paper_params
+    from repro_torch.core.params import TuningPolicy
+    return paper_params(merge_budget=1, range_cand=512, max_levels=4,
+                        tuning=TuningPolicy(mode="adaptive", interval=512,
+                                            eps_floor=1e-4))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("preset", ["write", "read"])
+def test_bloom_probe_levels_kernel_at_tuner_presets(cuda, preset):
+    """Levels 0 and 1 at the paper geometry's WRITE and READ presets
+    (effective bits below the words sized at eps_floor, but READ's
+    level 0, which is at the floor), 4 runs a level of 4,093 keys; then
+    the same batch with level 0 left out."""
+    from repro_torch.engine import tuner as TU
+    p = _adaptive_paper()
+    pa = TU.build_presets(p)[preset].apply(p)
+    rng = np.random.default_rng(40 + len(preset))
+    stacks, members = [], []
+    for level in (0, 1):
+        cap, eps = pa.level_cap(level), pa.level_eps(level)
+        bits, _, k = pa.bloom_geometry(cap, eps)
+        words = pa.bloom_words_physical(cap, eps)
+        assert bits < 32 * words or (preset, level) == ("read", 0)
+        blooms, keys = _level(rng, 4, 4093, words, k, bits, cuda)
+        stacks.append((blooms, k, bits))
+        members.append(keys.reshape(-1))
+    q = _t(_keys(rng, np.concatenate(members), 4096), cuda)
+    both = _levels_equal(stacks, q)
+    one, = _levels_equal(stacks[1:], q)
+    assert torch.equal(one, both[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sparse", [False, True])
+def test_adaptive_stream_on_card_matches_cpu(cuda, sparse):
+    """A shifting stream (write burst, reads with a trickle, writes) on
+    the card and on the CPU: every answer, state leaf, counter and the
+    tuner's position equal after every round, through retunes to WRITE
+    and READ; once level 0 is folded empty the lookups leave it out of
+    their one bloom_probe launch."""
+    from repro_torch import convert
+    from repro_torch.core.oracle import DictOracle
+    from repro_torch.core.params import SLSMParams, TuningPolicy
+    from repro_torch.engine import SLSM
+    from repro_torch.engine.read_path import host_occupancy
+    p = SLSMParams(R=4, Rn=32, eps=1e-2, D=3, m=1.0, mu=8, max_levels=3,
+                   max_range=2048, cand_factor=16, merge_budget=1,
+                   tuning=TuningPolicy(mode="adaptive", interval=64,
+                                       eps_floor=1e-3))
+    card, cpu, oracle = SLSM(p, device=cuda), SLSM(p, device="cpu"), \
+        DictOracle()
+    rng = np.random.default_rng(8)
+    probe = np.arange(0, 600, dtype=np.int32)
+    seen, folded = set(), 0
+
+    def same():
+        for g, w in zip(convert.state_to_leaves(card.state),
+                        convert.state_to_leaves(cpu.state)):
+            np.testing.assert_array_equal(g, w)
+        assert dict(card.stats) == dict(cpu.stats)
+        assert card.runs == cpu.runs == host_occupancy(cpu.state)
+        assert (card.tuner.active, card.tuner.read_frac) == (
+            cpu.tuner.active, cpu.tuner.read_frac)
+        seen.add(card.tuner.active)
+
+    def write(n):
+        ks = rng.integers(0, 300, n).astype(np.int32) * 2
+        vs = rng.integers(-99, 99, n).astype(np.int32)
+        for t in (card, cpu, oracle):
+            t.insert(ks, vs)
+
+    for r in range(22):
+        if r < 6 or r >= 18:
+            write(80)
+        else:
+            level_runs = card.runs[1]
+            before = KBP.bloom_probe_levels.launches
+            v, f = card.lookup_many(probe, sparse=sparse)
+            assert KBP.bloom_probe_levels.launches == before + bool(
+                any(level_runs))
+            folded += bool(level_runs) and level_runs[0] == 0
+            vc, fc = cpu.lookup_many(probe, sparse=sparse)
+            vo, fo = oracle.lookup(probe)
+            np.testing.assert_array_equal(f, fc)
+            np.testing.assert_array_equal(v, vc)
+            np.testing.assert_array_equal(f, fo)
+            np.testing.assert_array_equal(v[f], vo[fo])
+            if r % 3 == 2:
+                write(8)
+        same()
+    assert {"write", "read"} <= seen and card.stats["retunes"] >= 2
+    assert folded
+
+
+@pytest.mark.gpu
+def test_run_tape_on_card_matches_cpu(cuda):
+    """Mixed windows through `run_tape` on the card and on the CPU: equal
+    per-chunk results and state."""
+    from repro_torch import convert
+    from repro_torch.core.params import SLSMParams
+    from repro_torch.engine import SLSM
+    p = SLSMParams(R=2, Rn=8, eps=0.02, D=2, m=1.0, mu=4, max_levels=3,
+                   max_range=512, cand_factor=16, merge_budget=1)
+    card, cpu = SLSM(p, device=cuda), SLSM(p, device="cpu")
+    rng = np.random.default_rng(13)
+    for _ in range(10):
+        window = []
+        for _ in range(int(rng.integers(4, 17))):
+            kind = rng.choice(["write", "lookup", "range"], p=[.5, .4, .1])
+            n = int(rng.integers(1, 5 if kind == "range" else 9))
+            ks = rng.integers(0, 100, n).astype(np.int32)
+            window.append((str(kind), ks, (ks + rng.integers(0, 40, n))
+                           .astype(np.int32), None))
+        got, want = card.run_tape(window), cpu.run_tape(window)
+        for g, w in zip(got, want):
+            if isinstance(w, int):
+                assert g == w
+            else:
+                for a, b in zip(g, w):
+                    np.testing.assert_array_equal(a, b)
+        card.voluntary_steps(1)
+        cpu.voluntary_steps(1)
+    for g, w in zip(convert.state_to_leaves(card.state),
+                    convert.state_to_leaves(cpu.state)):
+        np.testing.assert_array_equal(g, w)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("fence_bytes", [None, 64])
 @pytest.mark.parametrize("stride", [1, 2, 4])
@@ -245,6 +374,26 @@ def test_fence_lookup_kernel_matches_plain(cuda, monkeypatch, stride,
     assert KFL.fence_lookup_many.launches == before + 1
     assert torch.equal(got, KFL.fence_lookup_plain(*args, 8 * stride))
     assert (got[0, :1000] >= 0).all()
+
+
+@pytest.mark.gpu
+def test_fence_lookup_kernel_at_write_preset_stride(cuda):
+    """The WRITE preset's stride-2 view of paper level 0: 40,448-slot
+    runs, 79 fences every 512, every 2nd searched with 1,024-wide pages,
+    so the 40th page is partial and pinned to cap - 1,024."""
+    rng = np.random.default_rng(77)
+    keys, counts = _sorted_runs(rng, 4, 40_448, 1 << 24)
+    fences = np.ascontiguousarray(keys[:, ::512][:, ::2])
+    assert fences.shape[1] * 1024 > 40_448
+    qs = np.concatenate([keys[0, :2048], keys[0, -2048:],
+                         rng.integers(-2 ** 23, 2 ** 23, 2048)]).astype(
+                             np.int32)
+    qs = np.where(qs == KEY_EMPTY, 0, qs).astype(np.int32)
+    args = [_t(a, cuda) for a in (qs, fences, keys, counts)]
+    got = KFL.fence_lookup_many(*args, 1024)
+    torch.cuda.synchronize()
+    assert torch.equal(got, KFL.fence_lookup_plain(*args, 1024))
+    assert (got[0, :4096] >= 0).all()      # the pinned page's keys too
 
 
 def _runs(rng, k, cap):
@@ -278,7 +427,7 @@ def test_heap_merge_kernel_matches_plain(cuda, k):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("k", [2, 3, 20, 50, 600])
+@pytest.mark.parametrize("k", [1, 2, 3, 20, 50, 600])
 def test_kway_merge_kernel_matches_plain(cuda, k):
     """The two-launch k-way merge against its plain version on all four
     lanes, partly filled runs (padding ties across runs)."""

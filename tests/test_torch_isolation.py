@@ -1,6 +1,6 @@
 """The port stands alone: importing every `repro_torch` module pulls in
 neither JAX nor the reference package, and the engine refuses to start
-without a CUDA card unless asked for the CPU."""
+without a CUDA card unless asked for the CPU, adaptive tuning or not."""
 import subprocess
 import sys
 from pathlib import Path
@@ -25,14 +25,16 @@ print(len(mods), "modules;", "leaked:", bad)
 assert len(mods) >= 20, mods
 assert not bad, bad
 import torch
+from repro_torch.core.params import SLSMParams, TuningPolicy
 from repro_torch.engine import SLSM
 if not torch.cuda.is_available():
-    try:
-        SLSM()
-    except RuntimeError as e:
-        assert "device='cpu'" in str(e), e
-    else:
-        raise AssertionError("SLSM() started without a CUDA device")
+    for p in (None, SLSMParams(tuning=TuningPolicy(mode="adaptive"))):
+        try:
+            SLSM(p)
+        except RuntimeError as e:
+            assert "device='cpu'" in str(e), e
+        else:
+            raise AssertionError("SLSM() started without a CUDA device")
 """
 
 
