@@ -75,11 +75,30 @@ Phases, in order; any failure raises and exits non-zero:
              two engines at the cascade's geometry, answers equal and
              exact, >= 1 compaction; segments, and blocking reads a
              window by call site (CUDA sync debug mode).
+  durable  — the main phase's geometry with a WAL under build/durable
+             (its filesystem printed), fsynced at every call: 2M inserts
+             and 200K deletes in calls of 800 keys, each call to a
+             volatile engine and then to the durable one; write ops/s
+             of each, host ms a call, fsync ms a sync, WAL bytes an op; a
+             snapshot after the first 1M writes (ms, bytes); the engine
+             dropped without close() and the WAL cut inside its last
+             record; `SLSM.restore` on the card (restore_us, replayed
+             records, replay ops/s), then 1M lookups (half absent), 2,048
+             scans and 2,048 aggregates, every answer against the oracle
+             of the durable prefix. Then the killed writer: a child
+             process writes (insert and delete calls, run_tape windows,
+             lookups) through a durable adaptive engine at the cascade's
+             geometry and prints each call's acknowledgement; SIGKILLed
+             after 24-48 of them, its directory restores on the card: the
+             WAL's write records are a prefix of its stream covering every
+             acknowledged call, a RETUNE is replayed, and every answer
+             equals the oracle of that prefix.
              Launches are counted from 0 just before, and read just
              after, the main phase, the adaptive engine's traffic (after
-             its warm-up), its tape windows, and the scaled run_tape
-             engine's windows (not the op-by-op engine's); a path that
-             never launches one of the engine's four kernels fails.
+             its warm-up), its tape windows, the scaled run_tape
+             engine's windows (not the op-by-op engine's), and the
+             durable restore with its reads; a path that never launches
+             one of the engine's four kernels fails.
   lsm_kernel — the attention kernel against its plain version at the LM
              path's shapes: the tiered cache read in place (bf16 and f32;
              every row it must not read is NaN), the dense cache of
@@ -119,6 +138,7 @@ import argparse
 import dataclasses
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -190,7 +210,11 @@ def device_ms_by_name(fn, iters: int, warmup: int = 2) -> dict:
     a trace that is not whole is taken again, and if none of 3 is, each
     name's time per traced event over the 3 is multiplied by its
     launches a call — the most events a try traced over `iters`, rounded
-    up, since a trace only loses events — and the counts are logged."""
+    up, since a trace only loses events — and the counts are logged. If
+    all 3 traces are empty (the tracer can lose every event of a call, as
+    on an H100 once in kernel_phase), the calls are timed with CUDA events
+    instead (`wall_ms`, which also counts the host's gaps between
+    launches), under the one name "cuda_events", and that is logged."""
     import collections
 
     import torch
@@ -215,7 +239,10 @@ def device_ms_by_name(fn, iters: int, warmup: int = 2) -> dict:
         events.update(traced)
         most |= traced
     if not events:
-        raise AssertionError("the profiler traced no device time")
+        ms = wall_ms(fn, iters, warmup=0)
+        log(f"profiler: no device event traced in 3 tries of {iters} calls; "
+            f"timed with CUDA events instead: {ms} ms a call")
+        return {"cuda_events": ms}
     log(f"profiler: no whole trace of {iters} calls in 3 tries; the most "
         "counted " + json.dumps({kernel_name(k): n for k, n in most.items()}))
     return {k: us[k] / 1e3 / events[k] * -(-most[k] // iters) for k in us}
@@ -981,6 +1008,68 @@ def check_scans(oracle, wins, keys, vals, counts, trunc):
             raise AssertionError(f"scan {lo}:{hi} is not a correct prefix")
 
 
+def check_reads(eng, oracle, rng, pool, n_q: int, n_scan: int) -> dict:
+    """`n_q` lookups in batches of LOOKUP_BATCH (half of them `pool` keys,
+    half absent), then `n_scan` scans and `n_scan` aggregates of 256-key
+    windows in batches of SCAN_BATCH, every answer against `oracle`
+    (keys below 2**KEY_BITS). Returns the rates and truncation counts."""
+    qs = np.concatenate([pool[rng.integers(0, pool.size, n_q // 2)],
+                         rng.integers(2 ** KEY_BITS, 2 ** (KEY_BITS + 1),
+                                      n_q - n_q // 2, dtype=np.int32)])
+    qs = rng.permutation(qs).astype(np.int32)
+    clock = Clock()
+    got_v, got_f = [], []
+    for i in range(0, n_q, LOOKUP_BATCH):
+        with clock:
+            v, f = eng.lookup_many(qs[i:i + LOOKUP_BATCH])
+        got_v.append(v)
+        got_f.append(f)
+    t_lookup = clock.total
+    got_v, got_f = np.concatenate(got_v), np.concatenate(got_f)
+    inside = qs < 2 ** KEY_BITS
+    want_f = np.zeros(n_q, bool)
+    want_f[inside] = oracle.present[qs[inside]]
+    if not np.array_equal(got_f, want_f):
+        raise AssertionError(f"lookup found-flags differ on "
+                             f"{int((got_f != want_f).sum())} keys")
+    if not np.array_equal(got_v[got_f], oracle.val[qs[got_f]]):
+        raise AssertionError("lookup values differ from the oracle")
+
+    lo = rng.integers(0, 2 ** KEY_BITS - 256, n_scan, dtype=np.int32)
+    wins = np.stack([lo, lo + 256], axis=1)
+    clock = Clock()
+    n_trunc = 0
+    for i in range(0, n_scan, SCAN_BATCH):
+        w = wins[i:i + SCAN_BATCH]
+        with clock:
+            k, v, c, tr = eng.range_many(w)
+        check_scans(oracle, w, k, v, c, tr)
+        n_trunc += int(tr.sum())
+    t_scan = clock.total
+
+    n_agg_trunc = 0
+    alo = rng.integers(0, 2 ** KEY_BITS - 256, n_scan, dtype=np.int32)
+    awins = np.stack([alo, alo + 256], axis=1)
+    clock = Clock()
+    for i in range(0, n_scan, SCAN_BATCH):
+        w = awins[i:i + SCAN_BATCH]
+        with clock:
+            c, s, tr = eng.aggregate_many(w)
+        for j, (a, b) in enumerate(w):
+            if tr[j]:
+                n_agg_trunc += 1
+                continue
+            ek, ev = oracle.window(int(a), int(b))
+            if int(c[j]) != len(ek) or int(s[j]) != wrap_sum(ev):
+                raise AssertionError(f"aggregate {a}:{b} differs")
+    t_agg = clock.total
+    return dict(lookups=n_q, lookup_ops_per_s=n_q / t_lookup,
+                scans=n_scan, scans_per_s=n_scan / t_scan,
+                scans_truncated=n_trunc, aggregates=n_scan,
+                aggregates_per_s=n_scan / t_agg,
+                aggregates_truncated=n_agg_trunc)
+
+
 def main_phase(device, seed: int, n_writes: int):
     import torch
     from repro_torch.configs.slsm_paper import paper_params
@@ -1015,66 +1104,13 @@ def main_phase(device, seed: int, n_writes: int):
     # the default 8M writes) so a rehearsal with fewer writes stays short
     scale = n_writes / 8_000_000
     n_q = max(LOOKUP_BATCH, round(scale * 256) * LOOKUP_BATCH)
-    qs = np.concatenate([pool[rng.integers(0, pool.size, n_q // 2)],
-                         rng.integers(2 ** KEY_BITS, 2 ** (KEY_BITS + 1),
-                                      n_q - n_q // 2, dtype=np.int32)])
-    qs = rng.permutation(qs).astype(np.int32)
-    clock = Clock()
-    got_v, got_f = [], []
-    for i in range(0, n_q, LOOKUP_BATCH):
-        with clock:
-            v, f = eng.lookup_many(qs[i:i + LOOKUP_BATCH])
-        got_v.append(v)
-        got_f.append(f)
-    t_lookup = clock.total
-    got_v, got_f = np.concatenate(got_v), np.concatenate(got_f)
-    inside = qs < 2 ** KEY_BITS
-    want_f = np.zeros(n_q, bool)
-    want_f[inside] = oracle.present[qs[inside]]
-    if not np.array_equal(got_f, want_f):
-        raise AssertionError(f"lookup found-flags differ on "
-                             f"{int((got_f != want_f).sum())} keys")
-    if not np.array_equal(got_v[got_f], oracle.val[qs[got_f]]):
-        raise AssertionError("lookup values differ from the oracle")
-
     n_scan = max(SCAN_BATCH, round(scale * 64) * SCAN_BATCH)
-    lo = rng.integers(0, 2 ** KEY_BITS - 256, n_scan, dtype=np.int32)
-    wins = np.stack([lo, lo + 256], axis=1)
-    clock = Clock()
-    n_trunc = 0
-    for i in range(0, n_scan, SCAN_BATCH):
-        w = wins[i:i + SCAN_BATCH]
-        with clock:
-            k, v, c, tr = eng.range_many(w)
-        check_scans(oracle, w, k, v, c, tr)
-        n_trunc += int(tr.sum())
-    t_scan = clock.total
-
-    n_agg_trunc = 0
-    alo = rng.integers(0, 2 ** KEY_BITS - 256, n_scan, dtype=np.int32)
-    awins = np.stack([alo, alo + 256], axis=1)
-    clock = Clock()
-    for i in range(0, n_scan, SCAN_BATCH):
-        w = awins[i:i + SCAN_BATCH]
-        with clock:
-            c, s, tr = eng.aggregate_many(w)
-        for j, (a, b) in enumerate(w):
-            if tr[j]:
-                n_agg_trunc += 1
-                continue
-            ek, ev = oracle.window(int(a), int(b))
-            if int(c[j]) != len(ek) or int(s[j]) != wrap_sum(ev):
-                raise AssertionError(f"aggregate {a}:{b} differs")
-    t_agg = clock.total
+    reads = check_reads(eng, oracle, rng, pool, n_q, n_scan)
     if eng.n_levels != 2:
         raise AssertionError(f"expected 2 disk levels, got {eng.n_levels}")
     return eng, dict(
         write_ops=n_ops, write_s=t_write, insert_ops_per_s=n_ops / t_write,
-        lookups=n_q, lookup_ops_per_s=n_q / t_lookup,
-        scans=n_scan, scans_per_s=n_scan / t_scan, scans_truncated=n_trunc,
-        aggregates=n_scan, aggregates_per_s=n_scan / t_agg,
-        aggregates_truncated=n_agg_trunc,
-        live_keys=int(oracle.present.sum()), n_levels=eng.n_levels,
+        **reads, live_keys=int(oracle.present.sum()), n_levels=eng.n_levels,
         resident_records=eng.n_live,
         stats={k: int(v) for k, v in eng.stats.items()})
 
@@ -1689,6 +1725,327 @@ def tape_mix(windows) -> dict:
 
 
 # --------------------------------------------------------------------------
+# durable phase: the WAL, a snapshot, a torn tail and restore on the card
+# --------------------------------------------------------------------------
+
+DURABLE_INSERTS = 2_000_000     # in calls of DURABLE_CALL keys; a delete
+DURABLE_CALL = 800              # call of as many keys after every tenth
+WRITER_CALLS = 600              # the killed writer's stream, far past the kill
+WRITER_KILL_AFTER = (24, 49)    # acknowledged calls before the SIGKILL
+WRITER_LOOKUPS = 4096           # keys a lookup call of the killed writer
+
+
+def fs_type(path) -> str:
+    """Filesystem type of the mount that holds `path` (the longest mount
+    point over it in /proc/self/mounts)."""
+    path = os.path.realpath(path)
+    best, kind = "", "unknown"
+    with open("/proc/self/mounts") as f:
+        for line in f:
+            mnt, typ = line.split()[1:3]
+            mnt = mnt.replace("\\040", " ")
+            inside = path == mnt or path.startswith(mnt.rstrip("/") + "/")
+            if inside and len(mnt) >= len(best):
+                best, kind = mnt, typ
+    return kind
+
+
+class fsync_clock:
+    """The time and count of every `os.fsync` inside the blocks."""
+
+    def __init__(self):
+        self.total, self.count = 0.0, 0
+
+    def __enter__(self):
+        self.real = os.fsync
+
+        def timed(fd):
+            t0 = time.perf_counter()
+            self.real(fd)
+            self.total += time.perf_counter() - t0
+            self.count += 1
+
+        os.fsync = timed
+
+    def __exit__(self, *exc):
+        os.fsync = self.real
+
+
+def durable_calls(rng, n_inserts: int, size: int):
+    """Insert calls of `size` uniform keys and, after every tenth, a
+    delete call of `size` keys drawn from all written so far (the main
+    phase's mix): ("insert", keys, vals) / ("delete", keys, None)."""
+    written = np.empty(n_inserts // size * size, np.int32)
+    for i in range(n_inserts // size):
+        ks = rng.integers(0, 2 ** KEY_BITS, size, dtype=np.int32)
+        written[i * size:(i + 1) * size] = ks
+        yield "insert", ks, rng.integers(-2 ** 31, 2 ** 31 - 1, size,
+                                         dtype=np.int32)
+        if i % 10 == 9:
+            n = (i + 1) * size
+            yield "delete", written[rng.integers(0, n, size)], None
+
+
+def durable_phase(device, seed: int, n_inserts: int, tally, p=None):
+    """The main phase's geometry with a WAL fsynced at every call: each
+    call to a volatile engine, then to the durable one (both on the
+    card), a snapshot after the first half of the writes, a torn tail
+    in the last record, and `SLSM.restore` on the card, whose answers
+    are held against the oracle of the durable prefix. `tally` counts
+    from just before the restore to after its reads."""
+    import shutil
+
+    import torch
+    from repro_torch.configs.slsm_paper import paper_params
+    from repro_torch.engine import SLSM
+    from repro_torch.engine import wal as WAL
+
+    t_phase = time.perf_counter()
+    p = p or paper_params(merge_budget=1, range_cand=512)
+    root = ROOT / "build" / "durable"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    rec = dict(directory=str(root.relative_to(ROOT)), fs_type=fs_type(root))
+    log(f"durable: WAL directory {rec['directory']} on {rec['fs_type']}")
+    rng = np.random.default_rng(seed + 11)
+    calls = list(durable_calls(rng, n_inserts, DURABLE_CALL))
+    vol = SLSM(p, device=device)
+    dur = SLSM(p, device=device,
+               durability=WAL.Durability(root / "wal", fsync=True))
+    oracle = DenseOracle(KEY_BITS)
+    v_clock, d_clock, fsyncs = Clock(), Clock(), fsync_clock()
+    n_ops, snap = 0, None
+    for i, (kind, ks, vs) in enumerate(calls):
+        for eng, clock in ((vol, v_clock), (dur, d_clock)):
+            with clock, fsyncs:
+                if kind == "insert":
+                    eng.insert(ks, vs)
+                else:
+                    eng.delete(ks)
+        n_ops += ks.size
+        if i < len(calls) - 1:          # the last call's record is torn
+            (oracle.insert(ks, vs) if kind == "insert"
+             else oracle.delete(ks))
+        if snap is None and n_ops >= n_inserts // 2:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            snap = dur.snapshot()
+            rec.update(snapshot_ms=(time.perf_counter() - t0) * 1e3,
+                       snapshot_bytes=sum(f.stat().st_size
+                                          for f in snap.iterdir()),
+                       snapshot_at_ops=n_ops)
+    wal_stats = dur.durability.stats()
+    rec.update(
+        calls=len(calls), write_ops=n_ops,
+        volatile_write_ops_per_s=n_ops / v_clock.total,
+        durable_write_ops_per_s=n_ops / d_clock.total,
+        volatile_ms_a_call=v_clock.total * 1e3 / len(calls),
+        durable_ms_a_call=d_clock.total * 1e3 / len(calls),
+        wal_bytes=wal_stats["wal_bytes"], wal_syncs=wal_stats["wal_syncs"],
+        wal_bytes_an_op=wal_stats["wal_bytes"] / n_ops,
+        fsyncs=fsyncs.count, fsync_ms_a_sync=fsyncs.total * 1e3 / fsyncs.count)
+    pool = np.flatnonzero(oracle.present).astype(np.int32)
+    del dur, vol, eng                   # the crash: no close()
+    torch.cuda.empty_cache()
+
+    wal_path = root / "wal" / "wal.log"
+    offsets = WAL.record_offsets(wal_path)
+    last, start, end = offsets[-1]
+    if last.kind not in WAL.WRITE_KINDS:
+        raise AssertionError(f"the WAL ends in a record of kind {last.kind}")
+    cut = start + int(rng.integers(1, end - start))
+    with open(wal_path, "r+b") as f:
+        f.truncate(cut)
+    watermark = WAL.list_snapshots(root / "wal")[-1][0]
+    tail = [r for r, _, _ in offsets[:-1] if r.seqno > watermark]
+    tail_ops = sum(WAL.decode_write(r.payload, r.kind)[0].size for r in tail)
+
+    with tally:
+        t0 = time.perf_counter()
+        eng = SLSM.restore(root / "wal", device=device)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        reads = check_reads(eng, oracle, rng, pool, 256 * LOOKUP_BATCH,
+                            64 * SCAN_BATCH)
+    if eng.stats["replayed_records"] != len(tail):
+        raise AssertionError(f"restore replayed "
+                             f"{eng.stats['replayed_records']} records, the "
+                             f"durable tail holds {len(tail)}")
+    rec.update(
+        torn_record=dict(seqno=last.seqno, cut=cut, start=start, end=end),
+        snapshot_seqno=watermark, restore_us=eng.stats["restore_us"],
+        restore_wall_ms=restore_s * 1e3,
+        replayed_records=eng.stats["replayed_records"],
+        replayed_write_ops=tail_ops,
+        replay_write_ops_per_s=tail_ops / restore_s, n_levels=eng.n_levels,
+        **{f"after_restore_{k}": v for k, v in reads.items()},
+        phase_s=time.perf_counter() - t_phase)
+    return rec
+
+
+def writer_params():
+    """The cascade's scaled geometry with the reference's shifting
+    policy, so that RETUNE records reach the WAL."""
+    from repro_torch.core.params import SLSMParams, TuningPolicy
+    return SLSMParams(R=8, Rn=256, eps=1e-3, D=4, m=1.0, mu=64, max_levels=3,
+                      merge_budget=1, range_cand=512,
+                      tuning=TuningPolicy(mode="adaptive", interval=512,
+                                          eps_floor=1e-4))
+
+
+def writer_stream(seed: int):
+    """The killed writer's calls: 16 insert calls (1-800 keys), then
+    rounds of a `run_tape` window (`tape_windows`' mix), an insert, three
+    lookup batches of WRITER_LOOKUPS keys and a delete call:
+    ("insert", keys, vals), ("delete", keys, None), ("tape", chunks,
+    None), ("lookup", qs, None); keys are the even keys below
+    2 * SCALED_KEYS."""
+    rng = np.random.default_rng(seed + 12)
+    keys = np.arange(0, 2 * SCALED_KEYS, 2, dtype=np.int32)
+    p = writer_params()
+
+    def insert():
+        m = int(rng.integers(1, 801))
+        return ("insert", rng.choice(keys, m),
+                rng.integers(-2 ** 31, 2 ** 31 - 1, m, dtype=np.int32))
+
+    out = [insert() for _ in range(16)]
+    while len(out) < WRITER_CALLS:
+        window = split_chunks(tape_windows(rng, 1, keys, 800,
+                                           fresh=False)[0], p)
+        out += [("tape", window, None), insert()]
+        out += [("lookup", rng.choice(keys, WRITER_LOOKUPS), None)
+                for _ in range(3)]
+        out.append(("delete", rng.choice(keys, int(rng.integers(1, 101))),
+                    None))
+    return out
+
+
+def writer_records(calls):
+    """(call index, keys, vals, wts) of each WAL write record the calls
+    make, in order: one an insert or delete call, one a tape write
+    chunk."""
+    out = []
+    for i, (kind, a, b) in enumerate(calls):
+        if kind == "insert":
+            out.append((i, a, b, np.ones_like(a)))
+        elif kind == "delete":
+            out.append((i, a, np.zeros_like(a), np.full_like(a, -1)))
+        elif kind == "tape":
+            out += [(i, ch.keys, ch.vals, ch.wts) for ch in a
+                    if ch.kind == "write" and len(ch.keys)]
+    return out
+
+
+def writer_child(directory: str, seed: int, device) -> int:
+    """The killed writer's process: the calls of `writer_stream` on a
+    durable adaptive engine (fsync on), `voluntary_steps(1)` after each
+    tape window; after each call returns, one line `ack <call> <last
+    synced seqno>` on stdout. Runs until killed."""
+    from repro_torch.engine import SLSM
+    from repro_torch.engine import wal as WAL
+    eng = SLSM(writer_params(), device=device,
+               durability=WAL.Durability(directory, fsync=True))
+    for i, (kind, a, b) in enumerate(writer_stream(seed)):
+        if kind == "insert":
+            eng.insert(a, b)
+        elif kind == "delete":
+            eng.delete(a)
+        elif kind == "tape":
+            eng.run_tape(a)
+            eng.voluntary_steps(1)
+        else:
+            eng.lookup_many(a)
+        print(f"ack {i} {eng.durability.writer.last_seqno}", flush=True)
+    return 0
+
+
+def killed_writer_phase(device, seed: int):
+    """A child process on the card writes through `writer_child`; after a
+    seeded number of acknowledged calls it is killed (SIGKILL) and the
+    directory restored here on the card: the WAL's write records are a
+    prefix of the child's stream that covers every acknowledged call,
+    at least one RETUNE is replayed, and every answer equals the oracle
+    of that prefix (log-before-ack against a real crash)."""
+    import shutil
+    import signal
+
+    from repro_torch.engine import SLSM
+    from repro_torch.engine import wal as WAL
+
+    t_phase = time.perf_counter()
+    wdir = ROOT / "build" / "durable" / "writer"
+    shutil.rmtree(wdir, ignore_errors=True)
+    kill_after = int(np.random.default_rng(seed + 13).integers(
+        *WRITER_KILL_AFTER))
+    cmd = [sys.executable, str(ROOT / "chip_smoke.py"), "--seed", str(seed),
+           "--durable-writer", str(wdir), "--writer-device", str(device)]
+    child = subprocess.Popen(cmd, stdout=subprocess.PIPE, text=True)
+    acks = []
+    try:
+        for line in child.stdout:
+            if line.startswith("ack "):
+                acks.append(tuple(map(int, line.split()[1:])))
+                if len(acks) == kill_after:
+                    child.send_signal(signal.SIGKILL)
+                    break
+    finally:
+        if child.poll() is None and len(acks) < kill_after:
+            child.kill()
+        child.wait(timeout=120)
+        child.stdout.close()
+    if len(acks) < kill_after or child.returncode != -signal.SIGKILL:
+        raise AssertionError(f"killed writer: {len(acks)} acks of "
+                             f"{kill_after}, exit {child.returncode}")
+    records = WAL.read_wal(wdir / "wal.log")[0]
+    got = [WAL.decode_write(r.payload, r.kind) for r in records
+           if r.kind in WAL.WRITE_KINDS]
+    want = writer_records(writer_stream(seed))
+    acked_call, acked_seqno = acks[-1]
+    n_acked = sum(1 for i, *_ in want if i <= acked_call)
+    if len(got) < n_acked or records[-1].seqno < acked_seqno:
+        raise AssertionError(f"killed writer: the WAL holds {len(got)} "
+                             f"write records up to seqno "
+                             f"{records[-1].seqno}, the acknowledged calls "
+                             f"{n_acked} up to seqno {acked_seqno} "
+                             f"(calls {acks[-3:]})")
+    for j, ((k, v, w), (_, wk, wv, ww)) in enumerate(zip(got, want)):
+        if not (np.array_equal(k, wk) and np.array_equal(v, wv)
+                and np.array_equal(w, ww)):
+            raise AssertionError(f"killed writer: WAL write record {j} is "
+                                 "not the stream's")
+    retunes = [r.payload.decode() for r in records
+               if r.kind == WAL.REC_RETUNE]
+    eng = SLSM.restore(wdir, device=device)
+    if not retunes or eng.stats["retunes"] < 1:
+        raise AssertionError(f"killed writer: no RETUNE replayed "
+                             f"({retunes}, {eng.stats['retunes']})")
+    oracle = DenseOracle(KEY_BITS)
+    for k, v, w in got:
+        oracle.apply(k, v, w)
+    qs = np.arange(-8, 2 * SCALED_KEYS + 8, dtype=np.int32)
+    for i in range(0, qs.size, LOOKUP_BATCH):
+        q = qs[i:i + LOOKUP_BATCH]
+        oracle.check_lookups(q, *eng.lookup_many(q), "killed writer")
+    lo = np.arange(0, 2 * SCALED_KEYS, 2 * SCALED_KEYS // 64, dtype=np.int32)
+    wins = np.stack([lo, lo + 256], 1)
+    check_scans(oracle, wins, *eng.range_many(wins))
+    c, s, tr = eng.aggregate_many(wins)
+    for j, (a, b) in enumerate(wins):
+        ek, ev = oracle.window(int(a), int(b))
+        if tr[j] or int(c[j]) != len(ek) or int(s[j]) != wrap_sum(ev):
+            raise AssertionError(f"killed writer: aggregate {a}:{b} differs")
+    return dict(acked_calls=len(acks), last_acked_call=acked_call,
+                last_acked_seqno=acked_seqno, wal_seqno=records[-1].seqno,
+                write_records=len(got), acked_write_records=n_acked,
+                retune_records=retunes, replayed=eng.stats["replayed_records"],
+                retunes_replayed=eng.stats["retunes"],
+                restore_us=eng.stats["restore_us"],
+                live_keys=int(oracle.present.sum()),
+                phase_s=time.perf_counter() - t_phase)
+
+
+# --------------------------------------------------------------------------
 # LM phases: decode over the sLSM-tiered KV cache, Phi-4-mini at full width
 # --------------------------------------------------------------------------
 
@@ -2176,7 +2533,15 @@ def main() -> int:
                          "from `git show <commit>:src/repro_torch/csrc/"
                          "bloom_probe.cu`: built into build/bloom_parent/ "
                          "and timed in turns with bloom_probe")
+    ap.add_argument("--durable-writer", metavar="DIR",
+                    help=argparse.SUPPRESS)   # the killed writer's child
+    ap.add_argument("--writer-device", default="cuda",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.durable_writer:
+        sys.path.insert(0, str(ROOT / "src"))
+        return writer_child(args.durable_writer, args.seed,
+                            args.writer_device)
 
     import torch
     if not torch.cuda.is_available():
@@ -2285,7 +2650,7 @@ def main() -> int:
     # on it, and the scaled engine's tapes: each path's launches counted
     # from 0 just before its own calls and read just after them
     tallies = {path: LaunchTally(counters, contract)
-               for path in ("adaptive", "tape", "tape scaled")}
+               for path in ("adaptive", "tape", "tape scaled", "durable")}
     eng, oracle, adaptive, pool = adaptive_phase(
         device, args.seed, ADAPTIVE_N, tallies["adaptive"])
     log(f"adaptive [{card}]: " + json.dumps(adaptive))
@@ -2301,6 +2666,12 @@ def main() -> int:
     tape = tape_scaled_phase(device, args.seed, SCALED_WINDOWS,
                              tallies["tape scaled"])
     log(f"tape scaled [{card}]: " + json.dumps(tape))
+    durable = durable_phase(device, args.seed, DURABLE_INSERTS,
+                            tallies["durable"])
+    log(f"durable [{card}]: " + json.dumps(durable))
+    killed = killed_writer_phase(device, args.seed)
+    log(f"killed writer [{card}]: " + json.dumps(killed))
+    torch.cuda.empty_cache()
     by_path = {"main": launches}
     for path, tally in tallies.items():
         by_path[path] = tally.counts

@@ -5,7 +5,10 @@ The reference's state is a pytree whose leaves, in
 with each `LevelState` flattened in place — the order its snapshots are
 written in. The port's `SLSMState` keeps the same field order, so the
 leaf lists line up one to one. Blooms are uint32 in the reference and
-int32 words holding the same bits here (trap T6).
+int32 words holding the same bits here (trap T6); `state_to_leaves` and
+`state_from_leaves` are the one place that carries state out of and
+into the port, in the reference's order and dtypes, and the snapshot
+codec (`engine.wal`) calls them.
 
 The LM's parameters and decode caches travel as the reference's nested
 dicts of numpy arrays (`lm_params_from_numpy`, `caches_from_numpy` and
@@ -21,60 +24,76 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from repro_torch.core.params import SLSMParams, TuningPolicy
+from repro_torch.core.params import SLSMParams
 from repro_torch.device import resolve_device
 from repro_torch.engine.levels import LevelState
-from repro_torch.engine.memtable import SLSMState
+from repro_torch.engine.memtable import SLSMState, init_state
+from repro_torch.engine.wal import params_from_dict  # noqa: F401
 
 _N_TOP = len(SLSMState._fields) - 1      # leaves before the levels tuple
 _N_LEVEL = len(LevelState._fields)
+# the leaves the reference holds as uint32 (trap T6), by leaf position
+_BLOOM_TOP = SLSMState._fields.index("buf_blooms")
+_BLOOM_LEVEL = LevelState._fields.index("blooms")
 
 
-def params_from_dict(d: dict) -> SLSMParams:
-    """The port's `SLSMParams` from `dataclasses.asdict` of a reference
-    parameter set: `backend` is dropped, `tuning` rebuilt."""
-    d = dict(d)
-    d.pop("backend", None)
-    if isinstance(d.get("tuning"), dict):
-        d["tuning"] = TuningPolicy(**d["tuning"])
-    if d.get("eps_per_level") is not None:
-        d["eps_per_level"] = tuple(d["eps_per_level"])
-    return SLSMParams(**d)
+def _is_bloom(i: int) -> bool:
+    return (i == _BLOOM_TOP if i < _N_TOP
+            else (i - _N_TOP) % _N_LEVEL == _BLOOM_LEVEL)
+
+
+def _flat(state: SLSMState) -> list:
+    """The state's tensors in reference leaf order."""
+    out = list(state[:_N_TOP])
+    for lv in state.levels:
+        out += list(lv)
+    return out
 
 
 def _tensor(a, device) -> torch.Tensor:
-    """An int32 tensor of leaf `a`'s shape: a 0-d leaf stays 0-d
-    (`np.ascontiguousarray` would return it 1-d)."""
-    a = np.asarray(a)
-    if a.dtype == np.uint32:
-        a = a.view(np.int32)
-    return torch.tensor(np.ascontiguousarray(a), dtype=torch.int32,
-                        device=device).reshape(a.shape)
+    """The int32 tensor of leaf `a` (numpy array or tensor, int32 or the
+    reference's uint32 words) on `device`; a 0-d leaf stays 0-d. Any
+    other dtype raises."""
+    t = a if isinstance(a, torch.Tensor) else torch.from_numpy(
+        np.array(a, copy=True))
+    if t.dtype == torch.uint32:
+        t = t.view(torch.int32)
+    if t.dtype != torch.int32:
+        raise ValueError(f"state leaf of dtype {t.dtype}, expected int32 "
+                         "(uint32 for blooms)")
+    return t.to(device)
 
 
-def state_from_leaves(params: SLSMParams, leaves: Sequence,
-                      device) -> SLSMState:
-    """The port's state from numpy leaves in reference leaf order; the
-    number of disk levels follows from the leaf count."""
-    del params  # the geometry is carried by the leaves' shapes
+def state_from_leaves(params: SLSMParams, leaves: Sequence, device,
+                      n_levels: int | None = None) -> SLSMState:
+    """The port's state from leaves in reference leaf order (numpy arrays
+    or tensors). The number of disk levels follows from the leaf count,
+    and must equal `n_levels` where it is given; every leaf must have
+    the shape `init_state(params)` gives it. Raises otherwise."""
     extra = len(leaves) - _N_TOP
-    if extra < 0 or extra % _N_LEVEL:
-        raise ValueError(f"{len(leaves)} leaves do not form an SLSMState")
-    top = [_tensor(a, device) for a in leaves[:_N_TOP]]
-    levels = tuple(
-        LevelState(*(_tensor(a, device)
-                     for a in leaves[_N_TOP + i * _N_LEVEL:
-                                     _N_TOP + (i + 1) * _N_LEVEL]))
-        for i in range(extra // _N_LEVEL))
-    return SLSMState(*top, levels)
+    if extra < 0 or extra % _N_LEVEL or (
+            n_levels is not None and extra != n_levels * _N_LEVEL):
+        raise ValueError(f"{len(leaves)} leaves do not form an SLSMState"
+                         + ("" if n_levels is None
+                            else f" of {n_levels} disk levels"))
+    want = _flat(init_state(params, "meta", extra // _N_LEVEL))
+    for i, (a, w) in enumerate(zip(leaves, want)):
+        if tuple(a.shape) != tuple(w.shape):
+            raise ValueError(f"state leaf {i} has shape {tuple(a.shape)}, "
+                             f"expected {tuple(w.shape)}")
+    ts = [_tensor(a, device) for a in leaves]
+    levels = tuple(LevelState(*ts[_N_TOP + i * _N_LEVEL:
+                                  _N_TOP + (i + 1) * _N_LEVEL])
+                   for i in range(extra // _N_LEVEL))
+    return SLSMState(*ts[:_N_TOP], levels)
 
 
 def state_to_leaves(state: SLSMState) -> list[np.ndarray]:
-    """Numpy leaves in reference leaf order (blooms as int32 words)."""
-    out = [t.cpu().numpy() for t in state[:_N_TOP]]
-    for lv in state.levels:
-        out += [t.cpu().numpy() for t in lv]
-    return out
+    """The state's leaves as numpy arrays in reference leaf order and
+    dtypes (blooms as uint32 views of the int32 words)."""
+    out = [t.cpu().numpy() for t in _flat(state)]
+    return [a.view(np.uint32) if _is_bloom(i) else a
+            for i, a in enumerate(out)]
 
 
 # --------------------------------------------------------------------------

@@ -10,6 +10,8 @@ Layer map:
   tuner.py      — the adaptive allocation controller and its RETUNE rebuild
   tape.py       — the mixed-op tape (coalesced write/lookup/range window)
   read_path.py  — dense and sparse lookups, probe telemetry, scans, aggregates
+  wal.py        — durability: the CRC-framed, sequence-numbered WAL, atomic
+                  snapshots and the `Durability` manager (restore())
   engine.py     — the host-side `SLSM` engine
 """
 from repro_torch.engine.compaction import (CompactionPolicy,  # noqa: F401
@@ -19,3 +21,10 @@ from repro_torch.engine.levels import LevelState  # noqa: F401
 from repro_torch.engine.memtable import SLSMState, init_state  # noqa: F401
 from repro_torch.engine.scheduler import (MergeScheduler,  # noqa: F401
                                           MergeStep)
+from repro_torch.engine import wal  # noqa: F401
+from repro_torch.engine.wal import (Durability, SnapshotError,  # noqa: F401
+                                    WalRecord, WalTailer, WalWriter,
+                                    as_durability, check_frame,
+                                    list_snapshots, load_latest_snapshot,
+                                    read_snapshot, read_wal, record_offsets,
+                                    write_snapshot)

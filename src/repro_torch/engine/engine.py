@@ -12,33 +12,56 @@ between the write buffer, the filters and the fence view as the mix
 shifts (reference DESIGN.md §9): every state change runs at the active
 allocation `p_active`, a decided switch is a scheduler RETUNE step, and
 lookups leave out the structures that hold no run. `run_tape` executes a
-coalesced window of mixed ops (`engine.tape`). Durability (the WAL and
-snapshots) is not ported and raises.
+coalesced window of mixed ops (`engine.tape`).
+
+With ``durability=`` (a path or a `wal.Durability`) every write op is
+logged before any state changes and group-committed before the call
+returns; `snapshot` copies the state to the host, and `restore` rebuilds
+an engine from a directory that either package wrote (`engine.wal`).
 """
 from __future__ import annotations
 
 import collections
+import json
+import time
 
 import numpy as np
 import torch
 
+from repro_torch import convert
 from repro_torch.core.params import KEY_EMPTY, SLSMParams
 from repro_torch.device import resolve_device
 from repro_torch.engine import tape as TP
+from repro_torch.engine import wal as WAL
 from repro_torch.engine.batching import (ADAPTIVE_BUCKETS, adaptive_bucket,
                                          bucket_pow2, pad_to, pad_windows,
                                          range_many_host)
-from repro_torch.engine.compaction import CompactionPolicy, TieringPolicy
+from repro_torch.engine.compaction import (CompactionPolicy, LevelingPolicy,
+                                           TieringPolicy)
 from repro_torch.engine.memtable import init_state, stage_append
-from repro_torch.engine.read_path import (aggregate_many, level_probe_stats,
-                                          lookup_batch, lookup_many,
-                                          range_many, range_query)
+from repro_torch.engine.read_path import (aggregate_many, host_occupancy,
+                                          level_probe_stats, lookup_batch,
+                                          lookup_many, range_many,
+                                          range_query)
 from repro_torch.engine.scheduler import MergeScheduler
 from repro_torch.engine.tuner import (READ, ReadModePolicy, Tuner,
                                       retune_filters)
 
 # width of the tuner's sampled probe-telemetry pass
 PROBE_SAMPLE = 256
+
+# WAL and snapshot fingerprints name compaction policies by kind, so
+# restore() rebuilds the configured policy (the reference's names)
+_POLICY_KINDS = {"tiering": TieringPolicy, "leveling": LevelingPolicy}
+
+
+def _policy_kind(policy: CompactionPolicy) -> str:
+    """Fingerprint name of a compaction policy (the inverse of the
+    `_POLICY_KINDS` lookup restore() makes)."""
+    for name, cls in _POLICY_KINDS.items():
+        if type(policy) is cls:
+            return name
+    return type(policy).__name__.lower()
 
 
 def reject_reserved(keys: np.ndarray, vals: np.ndarray | None = None,
@@ -63,9 +86,6 @@ class SLSM:
                  policy: CompactionPolicy | None = None, device=None,
                  durability=None):
         self.p = params or SLSMParams()
-        if durability is not None:
-            raise NotImplementedError("durability (WAL/snapshots) is not "
-                                      "ported yet")
         self.device = resolve_device(device)
         self.policy = policy or TieringPolicy()
         self.policy.validate(self.p)
@@ -85,12 +105,36 @@ class SLSM:
                                          rows_merged_in=0, rows_merged_out=0,
                                          rows_annihilated=0,
                                          ghost_payload_bytes_skipped=0)
+        # durability: None = volatile; _replaying stops re-logging while
+        # restore() replays the WAL through this same write path
+        self._replaying = False
+        self.durability = WAL.as_durability(durability)
+        if self.durability is not None:
+            self.durability.ensure_header(self._wal_meta())
+        # a deposed leader's writes raise until promote()
+        self.fenced = False
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(
             self.device)
 
     # -- write path -------------------------------------------------------
+    def _guard_writes(self) -> None:
+        """Reject writes into a read-only engine: a fenced (deposed)
+        leader or a replica. Replay and `apply_replicated` pass (they
+        run with ``_replaying`` set)."""
+        if self._replaying:
+            return
+        if self.fenced:
+            raise RuntimeError(
+                "write rejected: this engine was fenced (deposed leader) "
+                "— demote() happened; rejoin via the new leader's "
+                "bootstrap or promote() to lead again")
+        if self.durability is not None and self.durability.replica:
+            raise RuntimeError(
+                "write rejected: replica engines are read-only until "
+                "promote()")
+
     def insert(self, keys, vals) -> None:
         """Batched insert (paper Algorithm 1/2): stage in Rn-sized chunks;
         after each chunk the scheduler runs up to `merge_budget` voluntary
@@ -104,6 +148,15 @@ class SLSM:
 
     def _insert(self, keys: np.ndarray, vals: np.ndarray,
                 wts: np.ndarray) -> None:
+        """The weighted write path (delete() enters with weight -1). With
+        durability, the whole call is one WAL record, logged before any
+        state changes and synced once at the end."""
+        if len(keys) > 0:
+            self._guard_writes()
+        log = (self.durability is not None and not self._replaying
+               and len(keys) > 0)
+        if log:
+            self.durability.log_write(keys, vals, wts)
         self.stats["writes"] += len(keys)
         self.tuner.note_writes(len(keys))
         rn = self.p.Rn
@@ -119,6 +172,8 @@ class SLSM:
             self.state = stage_append(self.p_active, self.state, chunk[0],
                                       chunk[1], chunk[2], n)
             self.scheduler.on_chunk()
+        if log:
+            self.durability.sync()
 
     def delete(self, keys) -> None:
         """Deletes are weight -1 records (paper 2.8); the pair annihilates
@@ -300,6 +355,20 @@ class SLSM:
                 last_reads = k
             elif ch.kind != "range":
                 raise ValueError(f"unknown tape chunk kind {ch.kind!r}")
+        if n_writes:
+            self._guard_writes()
+        # durability: one WAL record a write chunk, in stream order,
+        # synced before this call returns (log-before-ack)
+        log = self.durability is not None and not self._replaying
+        if log:
+            for ch in chunks:
+                if ch.kind == "write":
+                    k = np.asarray(ch.keys, np.int32).reshape(-1)
+                    if k.size:
+                        w = (np.ones_like(k) if ch.wts is None
+                             else np.asarray(ch.wts, np.int32).reshape(-1))
+                        self.durability.log_write(
+                            k, np.asarray(ch.vals, np.int32).reshape(-1), w)
         results = [0] * len(chunks)
         # stream-ordered (chunk index, chunk); an oversized write splits
         # across segments under one index
@@ -349,6 +418,8 @@ class SLSM:
         self.tuner.note_reads(n_reads)
         if self.tuner.enabled and last_reads is not None:
             self.tuner.last_queries = last_reads[:PROBE_SAMPLE].copy()
+        if log:
+            self.durability.sync()
         return results
 
     def warm_tape(self) -> None:
@@ -382,11 +453,172 @@ class SLSM:
     def apply_retune(self) -> None:
         """The device half of a RETUNE step: swap the active parameter set
         to the tuner's target allocation and rebuild every resident
-        filter under it (`tuner.retune_filters`)."""
+        filter under it (`tuner.retune_filters`). With durability the
+        switch is logged and synced, so a restored engine follows the
+        same allocations (losing an unsynced one changes no answer)."""
+        if self.durability is not None and not self._replaying:
+            self.durability.log_retune(self.tuner.target)
         alloc = self.tuner.allocation(self.tuner.target)
         self.p_active = alloc.apply(self.p)
         self.state = retune_filters(self.p_active, self.state)
         self.tuner.applied()
+        if self.durability is not None and not self._replaying:
+            self.durability.sync()
+
+    # -- durability (engine.wal) ---------------------------------------------
+    def _wal_meta(self) -> dict:
+        """Engine fingerprint for the WAL's META record, in the
+        reference's form: enough to rebuild — and refuse to mix up —
+        this configuration."""
+        return {"driver": "slsm", "params": WAL.params_to_dict(self.p),
+                "policy": _policy_kind(self.policy),
+                "wal": WAL.WAL_FORMAT}
+
+    def _snapshot_meta(self) -> dict:
+        """Host state that rides a snapshot beside its leaves: the
+        fingerprint, the number of disk levels, the tuner's position and
+        the stats counters at the watermark."""
+        return {**self._wal_meta(), "n_levels": self.n_levels,
+                "tuner": {"active": self.tuner.active,
+                          "read_frac": float(self.tuner.read_frac)},
+                "stats": {k: int(v) for k, v in self.stats.items()}}
+
+    def snapshot(self):
+        """Copy the whole state to the host as one atomic snapshot stamped
+        with the WAL's seqno watermark; restore() then replays only the
+        records past it. Returns the published directory."""
+        if self.durability is None:
+            raise ValueError("snapshot() requires a durability layer: "
+                             "construct with SLSM(..., durability=path)")
+        return self.durability.snapshot(self)
+
+    def _adopt_snapshot(self, leaves, meta: dict) -> None:
+        """Install a snapshot's leaves as the state and adopt the tuner
+        position and stats in `meta`. The leaves must form exactly
+        ``meta["n_levels"]`` disk levels of this geometry (raises
+        otherwise). Under adaptive tuning the run occupancy lookups skip
+        by (`runs`) is read from the adopted state."""
+        try:
+            self.state = convert.state_from_leaves(
+                self.p, leaves, self.device, int(meta["n_levels"]))
+        except ValueError as e:
+            raise WAL.SnapshotError(f"snapshot does not fit this engine: "
+                                    f"{e}") from None
+        for k, v in meta.get("stats", {}).items():
+            self.stats[k] = int(v)
+        t = meta.get("tuner")
+        if t and self.tuner.enabled:
+            name = t.get("active", self.tuner.active)
+            self.tuner.active = self.tuner.target = name
+            self.tuner.read_frac = float(t.get("read_frac",
+                                               self.tuner.read_frac))
+            self.p_active = self.tuner.allocation(name).apply(self.p)
+        if self.tuner.enabled:
+            self.runs = host_occupancy(self.state)
+
+    def _replay(self, records) -> None:
+        """Re-apply WAL records through the engine's own write path
+        (`_insert`, `apply_retune`) with logging off. Answer-exact, not
+        bitwise-state-exact: maintenance may pace differently than in
+        the crashed run, but reads are exact between steps."""
+        self._replaying = True
+        try:
+            n = 0
+            for rec in records:
+                if rec.kind in WAL.WRITE_KINDS:
+                    k, v, w = WAL.decode_write(rec.payload, rec.kind)
+                    self._insert(k, v, w)
+                elif rec.kind == WAL.REC_RETUNE:
+                    if self.tuner.enabled:
+                        self.tuner.target = rec.payload.decode()
+                        if self.tuner.pending:
+                            self.apply_retune()
+                            self.stats["retunes"] += 1
+                else:
+                    continue
+                n += 1
+            self.stats["replayed_records"] += n
+        finally:
+            self._replaying = False
+
+    @classmethod
+    def restore(cls, path, params: SLSMParams | None = None,
+                policy: CompactionPolicy | None = None, durability=None,
+                device=None):
+        """Recover an engine from a durability directory (written by the
+        port or the reference): load the newest snapshot that verifies
+        (none: replay from genesis), replay every WAL record past its
+        watermark, and return the live engine on `device` (the card
+        unless ``device="cpu"``; without a card this raises before the
+        directory is touched). A torn final record is dropped whole.
+        `params`/`policy` default to the recorded fingerprint. Wall time
+        and replay size land in ``stats`` as ``restore_us`` and
+        ``replayed_records``."""
+        t0 = time.perf_counter()
+        device = resolve_device(device)
+        dur = WAL.as_durability(durability if durability is not None
+                                else path)
+        # decode the durable prefix before any writer truncates the tail
+        records = dur.read_records()
+        header = next((json.loads(r.payload.decode()) for r in records
+                       if r.kind == WAL.REC_META), None)
+        snap = WAL.load_latest_snapshot(dur.dir)
+        meta = snap[2] if snap is not None else header
+        if meta is None and params is None:
+            raise ValueError(f"nothing to restore in {dur.dir}: no valid "
+                             "snapshot and no readable WAL header")
+        if params is None:
+            params = WAL.params_from_dict(meta["params"])
+        if policy is None and meta is not None:
+            policy = _POLICY_KINDS.get(meta.get("policy", "tiering"),
+                                       TieringPolicy)()
+        eng = cls(params, policy, device=device, durability=dur)
+        watermark = -1
+        if snap is not None:
+            num, leaves, smeta = snap
+            eng._adopt_snapshot(leaves, smeta)
+            watermark = num
+        eng._replay([r for r in records if r.seqno > watermark])
+        eng.stats["restore_us"] += int((time.perf_counter() - t0) * 1e6)
+        return eng
+
+    @classmethod
+    def open_replica(cls, path, *, fsync: bool = False, device=None):
+        """Open a replication follower over a bootstrapped directory: a
+        `restore` with a replica-mode durability layer, whose log is a
+        verbatim copy of the leader's stream (no local META record is
+        ever injected into it)."""
+        return cls.restore(path, durability=WAL.Durability(
+            path, fsync=fsync, replica=True), device=device)
+
+    def apply_replicated(self, records) -> int:
+        """Apply decoded leader WAL records through the replay path (the
+        follower's durability layer appended the raw frames first).
+        Returns the records applied."""
+        before = self.stats["replayed_records"]
+        self._replay(records)
+        return self.stats["replayed_records"] - before
+
+    def promote(self) -> "SLSM":
+        """Failover: make this replica a writable leader. Bumps the WAL
+        epoch (stale bytes of the earlier lineage a later crash may
+        expose are then rejected) and re-enables local logging. Returns
+        self."""
+        if self.durability is None:
+            raise ValueError("promote() requires a durability layer")
+        self.durability.writer.bump_epoch()
+        self.durability.replica = False
+        self.fenced = False
+        self.stats["promotions"] += 1
+        return self
+
+    def demote(self) -> "SLSM":
+        """Fence this engine against writes (a deposed leader): reads stay
+        served, every write raises until a later `promote()`. Returns
+        self."""
+        self.fenced = True
+        self.stats["demotions"] += 1
+        return self
 
     # -- stats ----------------------------------------------------------------
     @property

@@ -44,8 +44,7 @@ def _leaves_equal(ref_state, port_state):
     assert len(got) == len(want)
     for i, (g, w) in enumerate(zip(got, want)):
         w = np.asarray(w)
-        if w.dtype == np.uint32:
-            w = w.view(np.int32)
+        assert g.dtype == w.dtype, f"leaf {i}"
         np.testing.assert_array_equal(g, w, err_msg=f"leaf {i}")
 
 
@@ -257,18 +256,25 @@ def test_full_int32_value_domain_round_trips():
     assert t.count(5, 45) == 4
 
 
-def test_out_of_slice_options_raise():
-    """Durability (the WAL and snapshots) is the one option not ported
-    yet; the sparse lookup, the tape and adaptive tuning run."""
-    with pytest.raises(NotImplementedError):
-        SLSM(SMALL_PORT, device="cpu", durability="/nonexistent")
+def test_out_of_slice_options_raise(tmp_path):
+    """Every option of the single-tree engine is ported: durability (the
+    WAL and snapshots, static and adaptive), the sparse lookup, the tape
+    and adaptive tuning run. What raises is reattaching an engine of
+    another configuration to a durability directory."""
+    from repro_torch.engine import wal as WAL
+    static = SLSM(SMALL_PORT, device="cpu", durability=tmp_path / "s")
+    static.insert([1, 2], [3, 4])
+    static.durability.close()
     adaptive = dataclasses.replace(
         SMALL_PORT, tuning=type(SMALL_PORT.tuning)(mode="adaptive"))
-    with pytest.raises(NotImplementedError):
-        SLSM(adaptive, device="cpu", durability="/nonexistent")
-    t = SLSM(adaptive, device="cpu")
+    with pytest.raises(ValueError, match="different engine"):
+        SLSM(adaptive, device="cpu", durability=tmp_path / "s")
+    t = SLSM(adaptive, device="cpu", durability=tmp_path / "a")
     assert t.tuner.enabled and t.run_tape([]) == []
     assert t.lookup([1], sparse=True)[1].tolist() == [False]
+    t.durability.close()
+    assert [r.kind for r in WAL.read_wal(tmp_path / "s" / "wal.log")[0]] \
+        == [WAL.REC_META, WAL.REC_WRITE2]
 
 
 SMALL_PORT = convert.params_from_dict(dataclasses.asdict(SMALL))

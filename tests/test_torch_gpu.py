@@ -721,3 +721,73 @@ def test_lm_generate_on_card_matches_cpu(cuda, kind):
         else:
             torch.testing.assert_close(caches_c[key].cpu(), want, atol=1e-4,
                                        rtol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("adaptive", [False, True])
+def test_durable_engine_on_card_restores_on_card_and_cpu(cuda, tmp_path,
+                                                         adaptive):
+    """A durable engine on the card at the reference harness's tiny
+    geometry writes, snapshots and writes a WAL tail past it; the
+    directory restores on the card and with ``device="cpu"``: bitwise-
+    equal state leaves, the same answers, equal to the engine that wrote
+    it, and the card's restore launches the engine's kernels."""
+    from repro_torch import convert
+    from repro_torch.core.params import SLSMParams, TuningPolicy
+    from repro_torch.engine import SLSM
+    from repro_torch.engine import wal as WAL
+    from repro_torch.engine.tape import TapeChunk
+    tuning = (TuningPolicy(mode="adaptive", interval=64) if adaptive
+              else TuningPolicy())
+    p = SLSMParams(R=2, Rn=32, eps=1e-2, D=2, m=1.0, mu=16, max_levels=3,
+                   max_range=2048, merge_budget=1, tuning=tuning)
+    eng = SLSM(p, device=cuda, durability=WAL.Durability(tmp_path,
+                                                         fsync=False))
+    rng = np.random.default_rng(4)
+    probe = np.arange(0, 4000, 3, dtype=np.int32)
+
+    def writes(n_calls):
+        for i in range(n_calls):
+            ks = rng.integers(0, 4000, 48).astype(np.int32)
+            if i % 4 == 3:
+                eng.delete(ks[:16])
+            else:
+                eng.insert(ks, rng.integers(0, 1 << 20, 48).astype(np.int32))
+
+    writes(8)
+    for _ in range(12 if adaptive else 0):
+        eng.lookup_many(probe)
+    writes(2)
+    snap = eng.snapshot()
+    writes(4)
+    ks = rng.integers(0, 4000, 30).astype(np.int32)
+    eng.run_tape([TapeChunk("write", ks, ks * 5),
+                  TapeChunk("lookup", ks, ks)])
+    eng.durability.close()
+    assert snap.exists() and eng.n_levels >= 1
+
+    def answers(t):
+        v, f = t.lookup_many(probe)
+        k, vv, c, tr = t.range_many([(0, 4000), (123, 456), (1000, 3500)])
+        return [v, f, k, vv, c, tr]
+
+    launches = {f: f.launches for f in (KBP.bloom_probe_levels,
+                                        KFL.fence_lookup_many,
+                                        KRM.range_merge)}
+    on_card = SLSM.restore(str(tmp_path), device=cuda)
+    on_cpu = SLSM.restore(str(tmp_path), device="cpu")
+    assert on_card.stats["replayed_records"] == \
+        on_cpu.stats["replayed_records"] >= 5
+    for g, w in zip(convert.state_to_leaves(on_card.state),
+                    convert.state_to_leaves(on_cpu.state)):
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w)
+    got = answers(on_card)
+    for a, b, c in zip(got, answers(on_cpu), answers(eng)):
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(a, c)
+    assert all(f.launches > n for f, n in launches.items())
+    if adaptive:
+        assert eng.stats["retunes"] >= 1
+        assert on_card.tuner.active == on_cpu.tuner.active
+        assert on_card.runs == on_cpu.runs

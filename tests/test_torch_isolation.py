@@ -1,6 +1,8 @@
 """The port stands alone: importing every `repro_torch` module pulls in
-neither JAX nor the reference package, and the engine refuses to start
-without a CUDA card unless asked for the CPU, adaptive tuning or not."""
+neither JAX nor the reference package (nor `ml_dtypes`: the snapshot
+codec and checkpoints carry bfloat16 without it), and the engine refuses
+to start without a CUDA card unless asked for the CPU, adaptive tuning
+or not."""
 import subprocess
 import sys
 from pathlib import Path
@@ -16,15 +18,27 @@ import importlib, pkgutil, sys
 import repro_torch
 mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
-for name in mods:
+for name in mods + ["repro_torch.engine.wal", "repro_torch.checkpoint"]:
     importlib.import_module(name)
+import tempfile
+import torch
+from repro_torch.checkpoint import CheckpointManager
+from repro_torch.engine import wal
+with tempfile.TemporaryDirectory() as d:
+    tree = {"w": torch.ones(3, dtype=torch.bfloat16), "n": torch.arange(2)}
+    CheckpointManager(d).save(1, tree)
+    got, _ = CheckpointManager(d).restore(tree, device="cpu")
+    assert got["w"].dtype == torch.bfloat16 and torch.equal(got["w"],
+                                                            tree["w"])
+    wal.write_snapshot(d, 0, [tree["w"]], {})
+    assert torch.equal(wal.read_snapshot(d + "/snap_0")[0][0], tree["w"])
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
-             or m.startswith("repro."))
+             or m.startswith("repro.") or m == "ml_dtypes"
+             or m.startswith("ml_dtypes."))
 print(len(mods), "modules;", "leaked:", bad)
 assert len(mods) >= 20, mods
 assert not bad, bad
-import torch
 from repro_torch.core.params import SLSMParams, TuningPolicy
 from repro_torch.engine import SLSM
 if not torch.cuda.is_available():

@@ -33,8 +33,7 @@ def _leaves_equal(ref_state, port_state):
     assert len(got) == len(want)
     for i, (g, w) in enumerate(zip(got, want)):
         w = np.asarray(w)
-        if w.dtype == np.uint32:
-            w = w.view(np.int32)
+        assert g.dtype == w.dtype, f"leaf {i}"
         np.testing.assert_array_equal(g, w, err_msg=f"leaf {i}")
 
 
