@@ -93,12 +93,41 @@ Phases, in order; any failure raises and exits non-zero:
              WAL's write records are a prefix of its stream covering every
              acknowledged call, a RETUNE is replayed, and every answer
              equals the oracle of that prefix.
+  sharded  — the sharded engine (`ShardedSLSM`, 4 shards) at the paper's
+             widths with max_levels 2 (every tier of every shard is
+             allocated: ~23.1 GB of stacked state, peak memory printed):
+             4M inserts and 400K deletes in calls of 800 keys, 1M
+             lookups (half absent) in batches of 4,096, 2,048 scans and
+             2,048 aggregates in batches of 32, 64 run_tape windows with
+             writes of 1-800 keys, every answer against the numpy
+             oracle; every shard must spill. bloom_probe launches once a
+             lookup batch (and tape lookup slot), fence_lookup at most
+             once a level a batch, range_merge once a scan or aggregate
+             batch (and tape range slot), heap_merge twice a masked
+             merge step whatever the shards in its mask; write ops/s,
+             lookups/s, scans/s, aggregates/s and a lookup window's
+             device-busy share. Then each engine kernel at the path's
+             shard-batched shapes (bloom_probe over both levels of the
+             fleet's filters with 4 x 1,024 keys, fence_lookup over the
+             fleet's deepest level, heap_merge over a batch of 4 spills
+             of 20 x 40,448, range_merge over 4 x 32 rows of 512 lanes):
+             one launch (two for heap_merge) bitwise equal to the plain
+             version and to one single-tree launch a shard, timed beside
+             those four launches; the records join the kernels' `cases`.
+  sharded cascade — the cascade's geometry on 4 shards with adaptive
+             tuning and a WAL under build/sharded_cascade: deepest-level
+             compactions with annihilation in two shards or more, a
+             lockstep RETUNE, a snapshot halfway, the engine dropped
+             without close() and its WAL cut inside the last record,
+             `ShardedSLSM.restore` on the card, every answer against the
+             oracle of the durable prefix.
              Launches are counted from 0 just before, and read just
              after, the main phase, the adaptive engine's traffic (after
              its warm-up), its tape windows, the scaled run_tape
-             engine's windows (not the op-by-op engine's), and the
-             durable restore with its reads; a path that never launches
-             one of the engine's four kernels fails.
+             engine's windows (not the op-by-op engine's), the durable
+             restore with its reads, and the sharded engine's traffic
+             (after its warm-up); a path that never launches one of the
+             engine's four kernels fails.
   lsm_kernel — the attention kernel against its plain version at the LM
              path's shapes: the tiered cache read in place (bf16 and f32;
              every row it must not read is NaN), the dense cache of
@@ -2046,6 +2075,468 @@ def killed_writer_phase(device, seed: int):
 
 
 # --------------------------------------------------------------------------
+# sharded phase: S trees in one stacked state, every engine kernel one
+# launch for all shards
+# --------------------------------------------------------------------------
+
+SHARDS = 4                      # the reference's sweep_shards_4 count
+SHARDED_INSERTS = 4_000_000     # in calls of SHARDED_CALL keys; a delete
+SHARDED_CALL = 800              # call of as many keys after every tenth
+SHARDED_TAPES = 64              # run_tape windows, writes of 1-800 keys
+SHARDED_KERNEL_Q = 1024         # queries a shard in the kernel shapes
+
+
+def sharded_params():
+    """The paper's Table 1 widths at max_levels 2: the sharded engine
+    allocates every tier of every shard, and level 1 is then the
+    deepest (20 runs of 16,179,200 slots, ~5.78 GB a shard); at
+    max_levels 3 the deepest level would take ~115 GB a shard."""
+    from repro_torch.configs.slsm_paper import paper_params
+    return paper_params(max_levels=2, merge_budget=1, range_cand=512)
+
+
+class step_tally:
+    """Within the block, every masked step the sharded engine applies:
+    ``(kind, level, shards, heap_merge launches)``."""
+
+    def __init__(self, eng, counter):
+        self.eng, self.counter, self.steps = eng, counter, []
+
+    def __enter__(self):
+        real = self.eng._apply_step
+
+        def apply(kind, level, mask):
+            n0 = self.counter.launches
+            out = real(kind, level, mask)
+            self.steps.append((kind, level,
+                               tuple(int(s) for s in np.flatnonzero(mask)),
+                               self.counter.launches - n0))
+            return out
+
+        self.eng._apply_step = apply
+        return self
+
+    def __exit__(self, *exc):
+        del self.eng._apply_step          # the class's method again
+
+    def merges(self):
+        return [s for s in self.steps if s[0] != "seal"]
+
+
+def sharded_queries(eng, rng, pool, per_shard: int):
+    """(S, per_shard) lookup keys, each row its shard's: half `pool` keys,
+    half absent (odd keys above 2**KEY_BITS)."""
+    from repro_torch.engine.sharded import shard_ids
+    cand = np.concatenate([
+        rng.choice(pool, 16 * per_shard * eng.S),
+        rng.integers(2 ** KEY_BITS, 2 ** (KEY_BITS + 1),
+                     16 * per_shard * eng.S, dtype=np.int32) | 1])
+    sid = shard_ids(cand, eng.S)
+    half = per_shard // 2
+    rows = []
+    for s in range(eng.S):
+        mine = cand[sid == s]
+        present = mine[mine < 2 ** KEY_BITS][:half]
+        absent = mine[mine >= 2 ** KEY_BITS][:per_shard - half]
+        rows.append(rng.permutation(np.concatenate([present, absent])))
+    return np.stack(rows).astype(np.int32)
+
+
+def sharded_case(name, shape, launch, plain, singles, n_bytes, library,
+                 kernel_launches):
+    """One shard-batched kernel shape: the one call `launch` (all shards)
+    against `plain` bitwise and against `singles` (S single-tree calls,
+    one a shard) bitwise, device and wall times of each, and the byte
+    bound."""
+    import torch
+    counter, per = kernel_launches
+    n0 = counter.launches
+    got = launch()
+    n1 = counter.launches
+    one = singles()
+    torch.cuda.synchronize()
+    want = plain()
+    rec = dict(
+        case=f"sharded: {name}", shape=shape,
+        launches_a_call=(n1 - n0) // per,
+        single_launches=(counter.launches - n1) // per,
+        max_abs_err=max_abs_err(got, want),
+        single_max_abs_err=max_abs_err(got, one),
+        ms=device_ms(launch, 20), wall_ms=wall_ms(launch, 20),
+        single_ms=device_ms(singles, 20), single_wall_ms=wall_ms(singles, 20),
+        plain_ms=device_ms(plain, 3), bound_ms=bound_ms(n_bytes),
+        library_ms=device_ms(library, 10) if library else None)
+    log(f"sharded kernel {json.dumps(rec)}")
+    if rec["max_abs_err"] or rec["single_max_abs_err"]:
+        raise AssertionError(f"sharded {name}: the shard-batched kernel "
+                             "differs from its plain version or from one "
+                             "launch a shard")
+    if rec["launches_a_call"] != 1:
+        raise AssertionError(f"sharded {name}: {rec['launches_a_call']} "
+                             "launches a call, not one")
+    return rec
+
+
+def sharded_kernel_cases(eng, device, rng, pool):
+    """The four engine kernels at the sharded path's shapes, each one
+    launch for all shards: bloom_probe over both levels of the fleet's
+    filters (S x 20 runs a level) with S x 1,024 keys; fence_lookup over
+    the fleet's deepest level (S x 20 runs, 31,600 fences each); a
+    heap_merge batch of S level-0 spills (20 x 40,448 each); range_merge
+    over S x 32 scan rows of 512 lanes."""
+    import torch
+    from repro_torch.core import runs as RU
+    from repro_torch.core.params import KEY_EMPTY
+    from repro_torch.kernels import bloom_probe as KBP
+    from repro_torch.kernels import fence_lookup as KFL
+    from repro_torch.kernels import heap_merge as KHM
+    from repro_torch.kernels import range_merge as KRM
+    p, st, s_n = eng.p, eng.state, eng.S
+    q_n = SHARDED_KERNEL_Q
+    qs = torch.from_numpy(sharded_queries(eng, rng, pool, q_n)).to(device)
+    out = {}
+
+    stacks = []
+    for level, lv in enumerate(st.levels):
+        bits, _, k = p.bloom_geometry(p.level_cap(level), p.level_eps(level))
+        stacks.append((lv.blooms, k, bits))
+    words = sum(int(bloom_need([(b[s], k, bits) for b, k, bits in stacks],
+                               qs[s])[1].numel()) for s in range(s_n))
+    rows = sum(b.shape[1] for b, _, _ in stacks) * s_n
+    out["bloom_probe"] = sharded_case(
+        "both levels of every shard",
+        f"S={s_n} x ({', '.join(f'D={b.shape[1]} W={b.shape[2]} k={k}' for b, k, _ in stacks)}), Q={q_n} a shard",
+        lambda: KBP.bloom_probe_levels(stacks, qs),
+        lambda: [KBP.bloom_probe_plain(b, qs, k, bits)
+                 for b, k, bits in stacks],
+        lambda: [torch.stack(x) for x in zip(*[
+            KBP.bloom_probe_levels([(b[s], k, bits) for b, k, bits in stacks],
+                                   qs[s]) for s in range(s_n)])],
+        words * 4 + qs.numel() * 4 + rows * q_n, None,
+        (KBP.bloom_probe_levels, 1))
+
+    last = st.levels[-1]
+    stride, mu = p.fence_view(p.max_levels - 1)
+    fences = last.fences
+    d_n, cap = last.keys.shape[1:]
+    f_n = fences.shape[-1]
+    rows_k = last.keys.reshape(s_n * d_n, cap)
+    qs_d = qs.repeat_interleave(d_n, 0)
+    zero = torch.zeros(qs_d.shape, dtype=torch.int64, device=device)
+    f, fence_reads = search_reads(fences.reshape(s_n * d_n, f_n), zero, f_n,
+                                  qs_d, right=True)
+    start = ((f - 1).clamp(0, f_n - 1) * mu).clamp(max=cap - mu)
+    off, key_reads = search_reads(rows_k, start, mu, qs_d, right=False)
+    fence_words = int(torch.unique(fence_reads).numel())
+    key_words = int(torch.unique(key_reads).numel())
+    del f, start, off, fence_reads, key_reads, zero
+    out["fence_lookup"] = sharded_case(
+        "the fleet's deepest level",
+        f"S={s_n} x D={d_n}, F={f_n}, cap={cap}, mu={mu}, Q={q_n} a shard",
+        lambda: KFL.fence_lookup_many(qs, fences, last.keys, last.counts, mu),
+        lambda: KFL.fence_lookup_plain(qs, fences, last.keys, last.counts,
+                                       mu),
+        lambda: torch.stack([KFL.fence_lookup_many(
+            qs[s], fences[s], last.keys[s], last.counts[s], mu)
+            for s in range(s_n)]),
+        q_n * s_n * 4 * (1 + d_n) + s_n * d_n * 4
+        + (fence_words + key_words) * 4,
+        lambda: torch.searchsorted(rows_k, qs_d), (KFL.fence_lookup_many, 1))
+    del qs_d
+
+    n_runs, cap0 = p.D, p.level_cap(0)
+    fill = p.runs_merged * p.Rn
+    lanes = []
+    for _ in range(s_n):
+        cnt = np.full(n_runs, fill, np.int64)
+        cnt[n_runs // 2:] = fill - fill // 9
+        kr = sorted_runs(rng, n_runs, cap0, cnt)
+        real = kr != KEY_EMPTY
+        seqs = np.where(real, rng.permutation(kr.size).reshape(kr.shape), 0)
+        wts = np.where(real, rng.choice([-1, 1], kr.shape), 0)
+        lanes.append([a.reshape(-1).astype(np.int32) for a in (kr, wts,
+                                                               seqs)])
+    batch = [torch.from_numpy(np.stack(a)).to(device) for a in zip(*lanes)]
+    n = n_runs * cap0
+    ix = torch.arange(n, dtype=torch.int32,
+                      device=device).expand(s_n, -1).contiguous()
+    comp = RU.composite(batch[0], batch[2])
+    out["heap_merge"] = sharded_case(
+        "a masked spill of every shard",
+        f"B={s_n} x {n_runs} runs x {cap0} = {n} lanes a merge",
+        lambda: KHM.kway_merge(*batch, ix, n_runs),
+        lambda: KHM.kway_merge_plain(*batch, ix, n_runs),
+        lambda: tuple(torch.stack(x) for x in zip(*[
+            KHM.kway_merge(*(a[s] for a in batch), ix[s], n_runs)
+            for s in range(s_n)])),
+        s_n * n * 16 * 2,
+        lambda: torch.sort(comp, dim=1, stable=True),
+        (KHM.kway_merge, 2))
+    del batch, ix, comp
+
+    n_seg = 1 + p.R + p.D * p.max_levels     # stage, memory runs, levels
+    c_n = p.range_cand_eff(p.max_levels)
+    k, v, w, s, o = (torch.from_numpy(a).to(device) for a in scan_rows(
+        rng, s_n * SCAN_BATCH, c_n, n_seg))
+    filled = int(o[:, -1].sum())
+    comp = RU.composite(k, s)
+
+    def per_shard():
+        parts = [KRM.range_merge(*(a[i * SCAN_BATCH:(i + 1) * SCAN_BATCH]
+                                   for a in (k, v, w, s, o)), True)
+                 for i in range(s_n)]
+        return tuple(torch.cat(x) for x in zip(*parts))
+
+    out["range_merge"] = sharded_case(
+        "every shard's scan rows of a batch",
+        f"S x Q = {s_n} x {SCAN_BATCH} rows, C={c_n}, P={n_seg}",
+        lambda: KRM.range_merge(k, v, w, s, o, True),
+        lambda: KRM.range_merge_plain(k, v, w, s, o, True),
+        per_shard,
+        filled * 16 + o.numel() * 4 + k.numel() * 17,
+        lambda: torch.sort(comp, dim=1, stable=True),
+        (KRM.range_merge, 1))
+    return out
+
+
+def sharded_phase(device, seed: int, tally, n_inserts: int = SHARDED_INSERTS,
+                  n_tapes: int = SHARDED_TAPES, p=None):
+    """The sharded engine at the paper's widths, 4 shards, max_levels 2
+    (~23 GB of stacked state): `n_inserts` inserts and a tenth as many
+    deletes in calls of 800 keys, 1M lookups (half absent) in batches of
+    4,096, 2,048 scans and 2,048 aggregates of 256-key windows in
+    batches of 32, and `n_tapes` run_tape windows with writes of 1-800
+    keys, every answer against the numpy oracle. Launches are counted on
+    `tally` from after `warm()`: bloom_probe exactly once a lookup batch
+    (tape lookup slots included), fence_lookup at most once a level a
+    batch, range_merge once a scan or aggregate batch (and tape range
+    slot), heap_merge twice a masked merge step whatever the shards in
+    its mask; every shard must have spilled. Then the kernel shapes of
+    the path (`sharded_kernel_cases`) and a lookup window's device-busy
+    share. Returns (record, kernel cases)."""
+    import torch
+    from repro_torch.engine import ShardedSLSM
+    from repro_torch.kernels import heap_merge as KHM
+
+    t_phase = time.perf_counter()
+    p = p or sharded_params()
+    rng = np.random.default_rng(seed + 21)
+    torch.cuda.reset_peak_memory_stats()
+    eng = ShardedSLSM(p, SHARDS, device=device)
+    eng.warm()
+    state_bytes = sum(t.numel() * t.element_size()
+                      for t in eng.state[:-1]) + sum(
+        t.numel() * t.element_size() for lv in eng.state.levels for t in lv)
+    log(f"sharded: {SHARDS} shards, stacked state {state_bytes} bytes")
+    oracle = DenseOracle(KEY_BITS)
+    clock = Clock()
+    n_ops = 0
+    before = dict(tally.counts)
+    with tally, step_tally(eng, KHM.kway_merge) as steps:
+        for kind, ks, vs in durable_calls(rng, n_inserts, SHARDED_CALL):
+            with clock:
+                if kind == "insert":
+                    eng.insert(ks, vs)
+                else:
+                    eng.delete(ks)
+            (oracle.insert(ks, vs) if kind == "insert"
+             else oracle.delete(ks))
+            n_ops += ks.size
+    t_write = clock.total
+    writes = {k: tally.counts[k] - before[k] for k in before}
+    merges = steps.merges()
+    spilled = {s for kind, _, shards, _ in merges if kind == "spill"
+               for s in shards}
+    if spilled != set(range(SHARDS)):
+        raise AssertionError(f"sharded: shards {sorted(spilled)} spilled, "
+                             f"not all {SHARDS}")
+    bad = [m for m in merges if m[3] != 2]
+    if bad:
+        raise AssertionError(f"sharded: masked merge steps with other than "
+                             f"two heap_merge launches: {bad[:4]}")
+    masked = {}
+    for kind, _, shards, _ in merges:
+        masked[f"{kind} x {len(shards)}"] = masked.get(
+            f"{kind} x {len(shards)}", 0) + 1
+    pool = np.flatnonzero(oracle.present).astype(np.int32)
+
+    n_q, n_scan = 256 * LOOKUP_BATCH, 64 * SCAN_BATCH
+    before = dict(tally.counts)
+    with tally:
+        reads = check_reads(eng, oracle, rng, pool, n_q, n_scan)
+    got = {k: tally.counts[k] - before[k] for k in before}
+    batches, scan_batches = n_q // LOOKUP_BATCH, 2 * n_scan // SCAN_BATCH
+    if (got["bloom_probe"] != batches
+            or got["fence_lookup"] > p.max_levels * batches
+            or got["range_merge"] != scan_batches or got["heap_merge"]):
+        raise AssertionError(
+            f"sharded reads: launches {got} for {batches} lookup batches "
+            f"and {scan_batches} scan/aggregate batches")
+
+    windows = tape_windows(rng, n_tapes, pool, 800)
+    before = dict(tally.counts)
+    t_clock = Clock()
+    with tally, step_tally(eng, KHM.kway_merge) as tsteps:
+        for chunks in windows:
+            with t_clock:
+                results = eng.run_tape(chunks)
+            check_tape(oracle, chunks, results, "sharded tape")
+    tape = {k: tally.counts[k] - before[k] for k in before}
+    kinds = [ch.kind for w in windows for ch in w]
+    if (tape["bloom_probe"] != kinds.count("lookup")
+            or tape["range_merge"] != kinds.count("range")
+            or any(m[3] != 2 for m in tsteps.merges())
+            or tape["heap_merge"] != 2 * len(tsteps.merges())):
+        raise AssertionError(f"sharded tape: launches {tape} for "
+                             f"{kinds.count('lookup')} lookup and "
+                             f"{kinds.count('range')} range slots and "
+                             f"{len(tsteps.merges())} merge steps")
+    merges += tsteps.merges()
+
+    qs = rng.choice(pool, 8 * LOOKUP_BATCH).astype(np.int32)
+    busy, by_name = flow_busy(lambda: [
+        eng.lookup_many(qs[i:i + LOOKUP_BATCH])
+        for i in range(0, qs.size, LOOKUP_BATCH)])
+    busy["top"] = [(k[:48], round(us / 1e3, 4))
+                   for k, us in by_name.most_common(6)]
+    cases = sharded_kernel_cases(eng, device, rng, pool)
+    rec = dict(
+        shards=SHARDS, state_bytes=state_bytes, write_ops=n_ops,
+        write_s=t_write, write_ops_per_s=n_ops / t_write,
+        write_launches=writes, masked_merge_steps=masked,
+        merge_steps=len(merges),
+        shard_occupancy=eng.shard_occupancy().tolist(),
+        **reads, read_launches=got, tape_windows=n_tapes,
+        tape_ms_a_window=t_clock.total * 1e3 / n_tapes,
+        tape_launches=tape, tape_slots={k: kinds.count(k) for k in
+                                        ("write", "lookup", "range")},
+        lookup_window=busy, live_keys=int(oracle.present.sum()),
+        stats={k: int(v) for k, v in eng.stats.items()},
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+        phase_s=time.perf_counter() - t_phase)
+    del eng
+    torch.cuda.empty_cache()
+    return rec, cases
+
+
+def sharded_cascade_phase(device, seed: int, n_rounds: int = 200):
+    """The cascade's scaled geometry on 4 shards with adaptive tuning and
+    a WAL: `n_rounds` rounds of 3,000 inserts and 1,000 deletes over
+    65,536 keys with a lookup burst after every twentieth (so the tuner
+    moves), a snapshot halfway; it must compact the deepest level, with
+    annihilation, in two shards or more and make a lockstep RETUNE. The
+    engine is then dropped without close(), its WAL cut inside the last
+    record, restored on the card, and every answer held against the
+    oracle of every call but the torn one."""
+    import copy
+    import shutil
+
+    import torch
+    from repro_torch.core.oracle import DictOracle
+    from repro_torch.core.params import SLSMParams, TuningPolicy
+    from repro_torch.engine import ShardedSLSM
+    from repro_torch.engine import wal as WAL
+    from repro_torch.kernels import heap_merge as KHM
+
+    t_phase = time.perf_counter()
+    p = SLSMParams(R=8, Rn=256, eps=1e-3, D=4, m=1.0, mu=64, max_levels=3,
+                   merge_budget=1, range_cand=512,
+                   tuning=TuningPolicy(mode="adaptive", interval=512,
+                                       eps_floor=1e-4))
+    root = ROOT / "build" / "sharded_cascade"
+    shutil.rmtree(root, ignore_errors=True)
+    rng = np.random.default_rng(seed + 22)
+    eng = ShardedSLSM(p, SHARDS, device=device,
+                      durability=WAL.Durability(root, fsync=False))
+    oracle = DictOracle()
+    last = p.max_levels - 1
+    annihilated = {}
+    with step_tally(eng, KHM.kway_merge) as steps:
+        real = eng._apply_step
+
+        def apply(kind, level, mask):
+            if kind != "compact":
+                return real(kind, level, mask)
+            idx = np.flatnonzero(mask)
+            rows_in = eng.state.levels[last].counts.cpu().numpy()[idx].sum(1)
+            real(kind, level, mask)
+            rows_out = eng.state.levels[last].counts.cpu().numpy()[idx, 0]
+            for s, a, b in zip(idx, rows_in, rows_out):
+                annihilated[int(s)] = annihilated.get(int(s), 0) + int(a - b)
+
+        eng._apply_step = apply
+        for r in range(n_rounds):
+            ks = rng.integers(0, 2 ** 16, 3000, dtype=np.int32)
+            vs = rng.integers(-2 ** 31, 2 ** 31 - 1, 3000, dtype=np.int32)
+            dels = rng.integers(0, 2 ** 16, 1000, dtype=np.int32)
+            final = r == n_rounds - 1
+            eng.insert(ks, vs)
+            oracle.insert(ks, vs)
+            if final:                   # the torn record: not in the oracle
+                durable = copy.deepcopy(oracle)
+            eng.delete(dels)
+            oracle.delete(dels)
+            if r % 20 == 19:
+                for _ in range(4):
+                    eng.lookup_many(rng.integers(0, 2 ** 16, LOOKUP_BATCH,
+                                                 dtype=np.int32))
+            if r == n_rounds // 2:
+                eng.snapshot()
+    stats = {k: int(v) for k, v in eng.stats.items()}
+    compacted = sorted(s for s, n in annihilated.items() if n > 0)
+    if len(compacted) < 2 or stats["retunes"] < 1:
+        raise AssertionError(f"sharded cascade: compactions with "
+                             f"annihilation in shards {compacted}, "
+                             f"{stats['retunes']} retunes")
+    del eng                             # the crash: no close()
+    torch.cuda.empty_cache()
+    wal_path = root / "wal.log"
+    offsets = WAL.record_offsets(wal_path)
+    writes = [o for o in offsets if o[0].kind in WAL.WRITE_KINDS]
+    rec_last, start, end = writes[-1]
+    cut = start + int(rng.integers(1, end - start))
+    with open(wal_path, "r+b") as f:
+        f.truncate(cut)
+    t0 = time.perf_counter()
+    eng = ShardedSLSM.restore(root, device=device)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    qs = np.arange(-8, 2 ** 16 + 8, dtype=np.int32)
+    v, f = eng.lookup_many(qs)
+    vo, fo = durable.lookup(qs)
+    if not (np.array_equal(f, fo) and np.array_equal(v[f], vo[fo])):
+        raise AssertionError("sharded cascade: restored lookups differ from "
+                             "the oracle of the durable prefix")
+    lo = rng.integers(0, 2 ** 16, 64, dtype=np.int32)
+    wins = np.stack([lo, lo + rng.integers(1, 400, 64, dtype=np.int32)], 1)
+    k, vv, c, tr = eng.range_many(wins)
+    ca, sa, ta = eng.aggregate_many(wins)
+    for i, (a, b) in enumerate(wins):
+        ek, ev = durable.range(int(a), int(b))
+        ci = int(c[i])
+        if (not tr[i] and ci != len(ek)) or ci > len(ek) or not (
+                np.array_equal(k[i, :ci], ek[:ci])
+                and np.array_equal(vv[i, :ci], ev[:ci])):
+            raise AssertionError(f"sharded cascade scan {a}:{b} differs")
+        if not ta[i] and (int(ca[i]), int(sa[i])) != durable.aggregate(
+                int(a), int(b)):
+            raise AssertionError(f"sharded cascade aggregate {a}:{b} differs")
+    out = dict(
+        rounds=n_rounds, compactions=stats["compactions"],
+        annihilated_rows_by_shard=annihilated, retunes=stats["retunes"],
+        spills=stats["spills"], merge_steps=len(steps.merges()),
+        torn_record=dict(seqno=rec_last.seqno, cut=cut, start=start,
+                         end=end),
+        restore_wall_ms=restore_s * 1e3,
+        replayed_records=eng.stats["replayed_records"],
+        tuner_active=eng.tuner.active, live_keys=len(durable.d),
+        phase_s=time.perf_counter() - t_phase)
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+# --------------------------------------------------------------------------
 # LM phases: decode over the sLSM-tiered KV cache, Phi-4-mini at full width
 # --------------------------------------------------------------------------
 
@@ -2650,7 +3141,8 @@ def main() -> int:
     # on it, and the scaled engine's tapes: each path's launches counted
     # from 0 just before its own calls and read just after them
     tallies = {path: LaunchTally(counters, contract)
-               for path in ("adaptive", "tape", "tape scaled", "durable")}
+               for path in ("adaptive", "tape", "tape scaled", "durable",
+                            "sharded")}
     eng, oracle, adaptive, pool = adaptive_phase(
         device, args.seed, ADAPTIVE_N, tallies["adaptive"])
     log(f"adaptive [{card}]: " + json.dumps(adaptive))
@@ -2672,6 +3164,13 @@ def main() -> int:
     killed = killed_writer_phase(device, args.seed)
     log(f"killed writer [{card}]: " + json.dumps(killed))
     torch.cuda.empty_cache()
+    sharded, sharded_cases = sharded_phase(device, args.seed,
+                                           tallies["sharded"])
+    log(f"sharded [{card}]: " + json.dumps(sharded))
+    for rec in kernels:
+        rec["cases"].append(sharded_cases[rec["name"]])
+    cascade = sharded_cascade_phase(device, args.seed)
+    log(f"sharded cascade [{card}]: " + json.dumps(cascade))
     by_path = {"main": launches}
     for path, tally in tallies.items():
         by_path[path] = tally.counts

@@ -65,18 +65,21 @@ def _tensor(a, device) -> torch.Tensor:
 
 
 def state_from_leaves(params: SLSMParams, leaves: Sequence, device,
-                      n_levels: int | None = None) -> SLSMState:
+                      n_levels: int | None = None,
+                      n_shards: int | None = None) -> SLSMState:
     """The port's state from leaves in reference leaf order (numpy arrays
     or tensors). The number of disk levels follows from the leaf count,
     and must equal `n_levels` where it is given; every leaf must have
-    the shape `init_state(params)` gives it. Raises otherwise."""
+    the shape `init_state(params)` gives it — with a leading dimension
+    of `n_shards` for the sharded engine's stacked state. Raises
+    otherwise."""
     extra = len(leaves) - _N_TOP
     if extra < 0 or extra % _N_LEVEL or (
             n_levels is not None and extra != n_levels * _N_LEVEL):
         raise ValueError(f"{len(leaves)} leaves do not form an SLSMState"
                          + ("" if n_levels is None
                             else f" of {n_levels} disk levels"))
-    want = _flat(init_state(params, "meta", extra // _N_LEVEL))
+    want = _flat(init_state(params, "meta", extra // _N_LEVEL, n_shards))
     for i, (a, w) in enumerate(zip(leaves, want)):
         if tuple(a.shape) != tuple(w.shape):
             raise ValueError(f"state leaf {i} has shape {tuple(a.shape)}, "
@@ -90,7 +93,8 @@ def state_from_leaves(params: SLSMParams, leaves: Sequence, device,
 
 def state_to_leaves(state: SLSMState) -> list[np.ndarray]:
     """The state's leaves as numpy arrays in reference leaf order and
-    dtypes (blooms as uint32 views of the int32 words)."""
+    dtypes (blooms as uint32 views of the int32 words); a stacked state
+    keeps its leading shard dimension."""
     out = [t.cpu().numpy() for t in _flat(state)]
     return [a.view(np.uint32) if _is_bloom(i) else a
             for i, a in enumerate(out)]

@@ -65,24 +65,29 @@ def bloom_build(keys: torch.Tensor, valid: torch.Tensor, words: int, k: int,
                 bits: int | None = None) -> torch.Tensor:
     """Build a (words,) int32 filter over `keys` where `valid`.
 
-    `bits` is the effective filter size (default words*32). Trap T4: the
-    reference scatters invalid lanes to position words*32 and lets JAX
-    drop them; here the bit array has one spare slot at that position,
-    cut off before the words are packed."""
+    `bits` is the effective filter size (default words*32). The
+    positions are sorted and each word is the sum of its distinct bits
+    (their OR), so memory follows the keys, not the filter's bits, and
+    nothing waits on the device. Trap T4: the reference scatters invalid
+    lanes to position words*32 and lets JAX drop them; here they land in
+    a spare word that is cut off. The reference's positions are int32
+    and it raises `OverflowError` at the first build of a filter of
+    2**31 bits or more; so does the port, before it allocates anything."""
+    if words * 32 >= 2 ** 31:
+        raise OverflowError(f"bloom_build: a filter of {words} words holds "
+                            f"{words * 32} bits, 2**31 or more")
     if bits is None:
         bits = words * 32
     assert bits <= words * 32, f"effective bits {bits} > {words} words"
-    bits_phys = words * 32
-    pos = probe_positions(keys, k, bits)
-    pos = torch.where(valid[..., None], pos, bits_phys)
-    hot = torch.zeros(bits_phys + 1, dtype=torch.bool, device=keys.device)
-    hot[pos.reshape(-1)] = True
-    weights = torch.bitwise_left_shift(
-        torch.ones(32, dtype=torch.int64, device=keys.device),
-        torch.arange(32, dtype=torch.int64, device=keys.device))
-    packed = (hot[:bits_phys].reshape(words, 32).to(torch.int64)
-              * weights).sum(dim=1)
-    return words_to_i32(packed)
+    pos = torch.where(valid[..., None], probe_positions(keys, k, bits),
+                      words * 32).reshape(-1)
+    pos = torch.sort(pos).values
+    first = torch.ones_like(pos, dtype=torch.bool)
+    first[1:] = pos[1:] != pos[:-1]
+    bit = torch.bitwise_left_shift(torch.ones_like(pos), pos % 32)
+    packed = torch.zeros(words + 1, dtype=torch.int64, device=keys.device)
+    packed.scatter_add_(0, pos // 32, torch.where(first, bit, 0))
+    return words_to_i32(packed[:words])
 
 
 def bloom_probe(filter_words: torch.Tensor, keys: torch.Tensor, k: int,

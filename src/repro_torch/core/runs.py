@@ -40,10 +40,11 @@ def sort_records(keys, vals, wts, seqs):
 
 def survivor_mask(keys: torch.Tensor, wts: torch.Tensor,
                   drop_annihilated: bool) -> torch.Tensor:
-    """Valid-mask over a (key, seq)-sorted run: keep the newest record of
-    each key; drop padding; when `drop_annihilated`, drop keys whose
-    newest weight is <= 0."""
-    nxt = torch.cat([keys[1:], keys.new_full((1,), _KEY_EMPTY)])
+    """Valid-mask over a (key, seq)-sorted run (each row of a batch):
+    keep the newest record of each key; drop padding; when
+    `drop_annihilated`, drop keys whose newest weight is <= 0."""
+    nxt = torch.cat([keys[..., 1:],
+                     keys.new_full(keys.shape[:-1] + (1,), _KEY_EMPTY)], dim=-1)
     valid = (keys != _KEY_EMPTY) & (keys != nxt)
     if drop_annihilated:
         valid &= wts > 0
@@ -51,20 +52,21 @@ def survivor_mask(keys: torch.Tensor, wts: torch.Tensor,
 
 
 def partition_order(valid: torch.Tensor) -> torch.Tensor:
-    """Stable permutation moving `valid` lanes to the front."""
-    return torch.sort((~valid).to(torch.int32), stable=True).indices
+    """Stable permutation moving `valid` lanes to the front (of each row,
+    for a leading batch dimension)."""
+    return torch.sort((~valid).to(torch.int32), dim=-1, stable=True).indices
 
 
 def compact(keys, vals, wts, seqs, valid):
-    """Stable-partition valid elements to the front; pad the rest.
-    Returns (keys, vals, wts, seqs, count)."""
+    """Stable-partition valid elements to the front of each row; pad the
+    rest. Returns (keys, vals, wts, seqs, count)."""
     order = partition_order(valid)
-    ok = valid[order]
-    keys = torch.where(ok, keys[order], _KEY_EMPTY)
-    vals = torch.where(ok, vals[order], 0)
-    wts = torch.where(ok, wts[order], 0)
-    seqs = torch.where(ok, seqs[order], 0)
-    return keys, vals, wts, seqs, valid.sum().to(torch.int32)
+    ok = valid.gather(-1, order)
+    keys = torch.where(ok, keys.gather(-1, order), _KEY_EMPTY)
+    vals = torch.where(ok, vals.gather(-1, order), 0)
+    wts = torch.where(ok, wts.gather(-1, order), 0)
+    seqs = torch.where(ok, seqs.gather(-1, order), 0)
+    return keys, vals, wts, seqs, valid.sum(dim=-1).to(torch.int32)
 
 
 def merge_runs(keys2d, vals2d, wts2d, seqs2d, drop_annihilated: bool):

@@ -1,5 +1,6 @@
 // bloom_probe: Bloom-filter membership of one lookup batch in every run of
-// every disk level, in one launch.
+// every disk level, in one launch — of one tree, or of S trees at once
+// (the sharded engine's leading shard dimension).
 //
 // Replaces repro/kernels/bloom_probe/bloom_probe.py `_probe_kernel`
 // (`bloom_probe_pallas`), which the reference launched once per run. Its
@@ -9,6 +10,9 @@
 // Murmur3's finalizer of key ^ SEED1 / key ^ SEED2 (| 1 on h2) in native
 // uint32 arithmetic (wraparound is exact, trap T1). Each level's base
 // pointer and geometry come by value in `Levels`; no filter is copied.
+// With S shards (the reference vmaps the kernel over them) a level is an
+// (S, D_l, W_l) stack, the keys an (S, Q) array, and shard s's runs read
+// key row s: out[row0_l + s * D_l + d, q]. One tree is the S = 1 case.
 //
 // Bound: bytes, and under them latency. A probe is a scattered 4-byte read
 // that moves a 32-byte sector (a level-1 filter at the paper geometry is
@@ -32,7 +36,8 @@
 //    extra words are read only by chains that would have stopped after
 //    kBurst (about 2^-kBurst of non-members at half-full filters).
 //    kBurst >= 32 turns it off.
-// CTAs tile (level, run group) x kBlock queries; stores are bytes,
+// CTAs tile (level, shard, run group) x kBlock queries — a group never
+// spans two shards, so its runs share one key; stores are bytes,
 // coalesced along q. The schedule (kGroup 2, kBurst 4, kChunk 8, kBlock
 // 128) was chosen on an H100 by tools/bloom_probe_schedules.py, which
 // builds this file with other -DBLOOM_* values: more runs a thread or
@@ -66,11 +71,12 @@ constexpr unsigned kBlock = BLOOM_BLOCK;
 static_assert(kGroup >= 1 && kGroup <= 32, "a group's chains fit a mask");
 
 struct Level {
-  const uint32_t* blooms;  // (d_n, words) filters
+  const uint32_t* blooms;  // (n_shards, d_n, words) filters
   long long words;
   uint32_t bits;           // effective width, <= 32 * words
   int k;
-  int d_n;
+  int d_n;                 // runs a shard
+  int groups;              // run groups a shard, ceil(d_n / kGroup)
   int row0;                // first output row
   int group0;              // first run group (blockIdx.y)
 };
@@ -103,10 +109,12 @@ bloom_probe_levels_kernel(const int32_t* __restrict__ keys,
   const long long words = L.words;
   const uint32_t bits = L.bits;
   const int k = L.k;
-  const int d0 = (g - L.group0) * kGroup;
+  const int s = (g - L.group0) / L.groups;
+  const int d0 = (g - L.group0) % L.groups * kGroup;
   const int nr = min(kGroup, L.d_n - d0);
-  const uint32_t* w = L.blooms + d0 * words;
-  const uint32_t u = static_cast<uint32_t>(keys[q]);
+  const long long run0 = static_cast<long long>(s) * L.d_n + d0;
+  const uint32_t* w = L.blooms + run0 * words;
+  const uint32_t u = static_cast<uint32_t>(keys[s * q_n + q]);
   const uint32_t h1 = fmix32(u ^ SEED1);
   const uint32_t h2 = fmix32(u ^ SEED2) | 1u;
 
@@ -147,7 +155,7 @@ bloom_probe_levels_kernel(const int32_t* __restrict__ keys,
           if (!((v[c][r] >> sh[c]) & 1u)) alive &= ~(1u << r);
     }
   }
-  uint8_t* o = out + static_cast<long long>(L.row0 + d0) * q_n + q;
+  uint8_t* o = out + (L.row0 + run0) * q_n + q;
 #pragma unroll
   for (int r = 0; r < kGroup; ++r)
     if (r < nr) o[r * q_n] = (alive >> r) & 1u;
@@ -155,14 +163,16 @@ bloom_probe_levels_kernel(const int32_t* __restrict__ keys,
 
 }  // namespace
 
-// keys (Q,) int32; desc: n_levels rows of five int64 (filters' device
-// address, D, W, k, bits); out (sum D, Q) bool, level l's rows after
-// those of the levels before it.
-extern "C" int bloom_probe_levels_launch(const void* keys, void* out,
+// keys (S, Q) int32; desc: n_levels rows of five int64 (filters' device
+// address, D, W, k, bits), level l's filters (S, D_l, W_l); out
+// (S * sum D, Q) bool, level l's (S, D_l) rows after those of the levels
+// before it.
+extern "C" int bloom_probe_shards_launch(const void* keys, void* out,
                                          const void* desc,
                                          long long n_levels, long long q_n,
-                                         void* stream) {
-  if (n_levels < 1 || n_levels > kMaxLevels) return cudaErrorInvalidValue;
+                                         long long n_shards, void* stream) {
+  if (n_levels < 1 || n_levels > kMaxLevels || n_shards < 1)
+    return cudaErrorInvalidValue;
   Levels lv{};
   lv.n = static_cast<int>(n_levels);
   const long long* row = static_cast<const long long*>(desc);
@@ -174,12 +184,13 @@ extern "C" int bloom_probe_levels_launch(const void* keys, void* out,
     L.words = row[2];
     L.k = static_cast<int>(row[3]);
     L.bits = static_cast<uint32_t>(row[4]);
+    L.groups = (L.d_n + kGroup - 1) / kGroup;
     L.row0 = static_cast<int>(rows);
     L.group0 = static_cast<int>(groups);
-    rows += L.d_n;
-    groups += (L.d_n + kGroup - 1) / kGroup;
+    rows += n_shards * L.d_n;
+    groups += n_shards * L.groups;
   }
-  if (groups > 65535) return cudaErrorInvalidValue;
+  if (groups > 65535 || rows > INT32_MAX) return cudaErrorInvalidValue;
   if (groups > 0 && q_n > 0) {
     dim3 grid(slsm::grid_for(q_n, kBlock), static_cast<unsigned>(groups));
     bloom_probe_levels_kernel<<<grid, kBlock, 0,
@@ -188,6 +199,14 @@ extern "C" int bloom_probe_levels_launch(const void* keys, void* out,
         lv);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// One tree: keys (Q,), level l's filters (D_l, W_l), out (sum D, Q).
+extern "C" int bloom_probe_levels_launch(const void* keys, void* out,
+                                         const void* desc,
+                                         long long n_levels, long long q_n,
+                                         void* stream) {
+  return bloom_probe_shards_launch(keys, out, desc, n_levels, q_n, 1, stream);
 }
 
 // The compile-time schedule, for tools that build variants of this file.

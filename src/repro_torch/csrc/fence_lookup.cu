@@ -16,6 +16,11 @@
 // same index in log2(mu) loads. Output: the element index, or -1 when
 // the key is missing or its index is >= the run's count.
 //
+// With S shards (the reference vmaps the kernel over them) the stack is
+// (S * D, cap) runs, the queries (S, Q), and run d searches query row
+// d / D (`d_shard` = D runs a shard): one launch for the whole fleet. One
+// tree is the S = 1 case.
+//
 // Bound: bytes (scattered reads). A query needs ~log2(F) fence words and
 // ~log2(mu) key words of one run. With the fences staged, each thread's
 // chain of dependent loads is the window search's log2(mu) device-memory
@@ -33,12 +38,13 @@ fence_lookup_kernel(const int32_t* __restrict__ qs,
                     const int32_t* __restrict__ keys,
                     const int32_t* __restrict__ counts,
                     int32_t* __restrict__ out, int64_t q_n, int64_t f_n,
-                    int64_t cap, int64_t mu, int group, int staged) {
+                    int64_t cap, int64_t mu, int64_t d_shard, int group,
+                    int staged) {
   extern __shared__ int32_t st[];         // fences[d, j * group], j < staged
   const int64_t d = blockIdx.y;
   const int64_t q = blockIdx.x * static_cast<int64_t>(blockDim.x)
                     + threadIdx.x;
-  const int32_t x = q < q_n ? qs[q] : 0;
+  const int32_t x = q < q_n ? qs[d / d_shard * q_n + q] : 0;
   const int32_t* fr = fences + d * f_n;
   for (int j0 = threadIdx.x; j0 < staged; j0 += kBatch * blockDim.x) {
     int32_t v[kBatch];
@@ -77,15 +83,18 @@ fence_lookup_kernel(const int32_t* __restrict__ qs,
 
 }  // namespace
 
-// qs (Q,), fences (D, F), keys (D, cap), counts (D,) -> out (D, Q) int32.
-// `group` G: every G-th fence of a run is staged in shared memory,
+// qs (S, Q), fences (S * D, F), keys (S * D, cap), counts (S * D,) ->
+// out (S * D, Q) int32, run d searching query row d / d_shard (D =
+// d_shard runs a shard; one tree: S = 1, d_shard = D). `group` G: every G-th fence of a run is staged in shared memory,
 // `staged` = ceil(F / G) of them.
 extern "C" int fence_lookup_launch(const void* qs, const void* fences,
                                    const void* keys, const void* counts,
                                    void* out, long long d_n, long long q_n,
                                    long long f_n, long long cap,
-                                   long long mu, long long group,
-                                   long long staged, void* stream) {
+                                   long long mu, long long d_shard,
+                                   long long group, long long staged,
+                                   void* stream) {
+  if (d_shard < 1) return cudaErrorInvalidValue;
   if (d_n > 0 && q_n > 0) {
     const size_t smem = staged * sizeof(int32_t);
     const cudaError_t err = cudaFuncSetAttribute(
@@ -98,7 +107,8 @@ extern "C" int fence_lookup_launch(const void* qs, const void* fences,
         static_cast<const int32_t*>(qs), static_cast<const int32_t*>(fences),
         static_cast<const int32_t*>(keys),
         static_cast<const int32_t*>(counts), static_cast<int32_t*>(out), q_n,
-        f_n, cap, mu, static_cast<int>(group), static_cast<int>(staged));
+        f_n, cap, mu, d_shard, static_cast<int>(group),
+        static_cast<int>(staged));
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -30,6 +30,11 @@
 //    outputs, one diagonal search, then a sequential merge), and writes
 //    the tile once at its output rank.
 //
+//  Both kernels take a batch of B independent merges of one shape (grid
+//  y): the sharded engine's masked step merges every masked shard's runs
+//  in these two launches, as the reference's kernel runs under
+//  `jax.vmap`. One merge is the B = 1 case.
+//
 // Bound: bytes — 16 bytes read and 16 written per lane. The k-way form
 // adds the samples (every split CTA copies all k * cap / S of them from
 // L2 into shared memory where they fit), log2(cap / S) probes per
@@ -103,8 +108,16 @@ template <bool kShared>
 __global__ void __launch_bounds__(kSplitThreads)
 kway_split_kernel(const int32_t* __restrict__ k, const int32_t* __restrict__ s,
                   int32_t* __restrict__ split, int32_t* __restrict__ who,
-                  int n_runs, int cap, int step, int per_run, int group) {
+                  int n_runs, int cap, int step, int per_run, int group,
+                  int tiles) {
   extern __shared__ int32_t sk[];          // (n_runs, pitch) keys, seqs
+  {                                        // merge blockIdx.y of the batch
+    const int64_t b = blockIdx.y;
+    k += b * n_runs * cap;
+    s += b * n_runs * cap;
+    split += b * tiles * n_runs;
+    who += b * tiles;
+  }
   const int pitch = sample_pitch(per_run);
   int32_t* ss = sk + n_runs * pitch;
   const int n_samp = n_runs * per_run;
@@ -192,6 +205,19 @@ kway_merge_kernel(const int32_t* __restrict__ k,
   int32_t* hi = lo + n_runs;                // (n_runs,) last lane + 1
   int32_t* bnd = hi + n_runs;               // (n_runs + 1,) run bounds
   __shared__ int base;
+  {                                        // merge blockIdx.y of the batch
+    const int64_t b = blockIdx.y, lanes = static_cast<int64_t>(n_runs) * cap;
+    k += b * lanes;
+    w += b * lanes;
+    s += b * lanes;
+    ix += b * lanes;
+    ok += b * lanes;
+    ow += b * lanes;
+    os += b * lanes;
+    oix += b * lanes;
+    split += b * gridDim.x * n_runs;
+    who += b * gridDim.x;
+  }
   const int j = blockIdx.x;
   const bool last = j + 1 == static_cast<int>(gridDim.x);
   // lane counts of this tile's two boundaries, a thread per (bound, run)
@@ -269,13 +295,13 @@ cudaError_t merge_tiles(const void* k, const void* w, const void* s,
                         void* ok, void* ow, void* os, void* oix,
                         long long n_runs, long long cap, long long step,
                         long long tile, int per_run, unsigned tiles,
-                        cudaStream_t st) {
+                        unsigned batch, cudaStream_t st) {
   const size_t smem = (8 * tile + 3 * n_runs + 1) * sizeof(int32_t);
   const cudaError_t err = cudaFuncSetAttribute(
       kway_merge_kernel<kThreads>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  kway_merge_kernel<kThreads><<<tiles, kThreads, smem, st>>>(
+  kway_merge_kernel<kThreads><<<dim3(tiles, batch), kThreads, smem, st>>>(
       static_cast<const int32_t*>(k), static_cast<const int32_t*>(w),
       static_cast<const int32_t*>(s), static_cast<const int32_t*>(ix),
       static_cast<const int32_t*>(split), static_cast<const int32_t*>(who),
@@ -288,10 +314,12 @@ cudaError_t merge_tiles(const void* k, const void* w, const void* s,
 
 }  // namespace
 
-// The k-way merge: lanes k/w/s/ix and outputs (n_runs * cap,) int32,
-// runs back to back, each sorted by (key, seq). `step` = S, `group` = G
-// with S * (G + n_runs) <= tile; split (n_tiles, n_runs) and who
-// (n_tiles,) int32 scratch, n_tiles = ceil(n_runs * ceil(cap / S) / G).
+// The k-way merge of a batch of `batch` merges: lanes k/w/s/ix and
+// outputs (batch, n_runs * cap) int32, each merge's runs back to back,
+// each run sorted by (key, seq). `step` = S, `group` = G
+// with S * (G + n_runs) <= tile; split (batch, n_tiles, n_runs) and who
+// (batch, n_tiles) int32 scratch, n_tiles = ceil(n_runs * ceil(cap / S)
+// / G).
 // shared != 0: each of the `split_ctas` split CTAs holds all
 // n_runs * ceil(cap / S) samples, 8 bytes each of shared memory; else
 // the split CTAs search the samples in place.
@@ -299,8 +327,10 @@ extern "C" int heap_merge_kway_launch(
     const void* k, const void* w, const void* s, const void* ix, void* split,
     void* who, void* ok, void* ow, void* os, void* oix, long long n_runs,
     long long cap, long long step, long long group, long long tile,
-    long long split_ctas, long long shared, void* stream) {
-  if (n_runs <= 0 || cap <= 0) return static_cast<int>(cudaGetLastError());
+    long long split_ctas, long long shared, long long batch, void* stream) {
+  if (n_runs <= 0 || cap <= 0 || batch <= 0)
+    return static_cast<int>(cudaGetLastError());
+  if (batch > 65535) return cudaErrorInvalidValue;
   const auto st = static_cast<cudaStream_t>(stream);
   const int per_run = static_cast<int>((cap + step - 1) / step);
   const int64_t samples = n_runs * per_run;
@@ -313,22 +343,25 @@ extern "C" int heap_merge_kway_launch(
       split_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(split_smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  split_kernel<<<static_cast<unsigned>(split_ctas), kSplitThreads,
-                 split_smem, st>>>(
+  split_kernel<<<dim3(static_cast<unsigned>(split_ctas),
+                      static_cast<unsigned>(batch)),
+                 kSplitThreads, split_smem, st>>>(
       static_cast<const int32_t*>(k), static_cast<const int32_t*>(s),
       static_cast<int32_t*>(split), static_cast<int32_t*>(who),
       static_cast<int>(n_runs), static_cast<int>(cap),
-      static_cast<int>(step), per_run, static_cast<int>(group));
+      static_cast<int>(step), per_run, static_cast<int>(group),
+      static_cast<int>(tiles));
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   // small tiles take more threads: a thread merges ~2-4 lanes a round
   return static_cast<int>(
       tile <= 1024 ? merge_tiles<512>(k, w, s, ix, split, who, ok, ow, os,
                                       oix, n_runs, cap, step, tile, per_run,
-                                      tiles, st)
+                                      tiles, static_cast<unsigned>(batch), st)
                    : merge_tiles<256>(k, w, s, ix, split, who, ok, ow, os,
                                       oix, n_runs, cap, step, tile, per_run,
-                                      tiles, st));
+                                      tiles, static_cast<unsigned>(batch),
+                                      st));
 }
 
 // Lanes k/w/s/ix and outputs (N,) int32; pairs (P, 3) int64 of

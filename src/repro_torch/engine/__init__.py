@@ -1,4 +1,4 @@
-"""The sLSM engine on PyTorch (port of `repro.engine`, single tree).
+"""The sLSM engine on PyTorch (port of `repro.engine`).
 
 Layer map:
   backend.py    — the four kernel slots + fence/gate helpers
@@ -10,17 +10,22 @@ Layer map:
   tuner.py      — the adaptive allocation controller and its RETUNE rebuild
   tape.py       — the mixed-op tape (coalesced write/lookup/range window)
   read_path.py  — dense and sparse lookups, probe telemetry, scans, aggregates
+                  (dense lookups, scans and aggregates also over a leading
+                  shard dimension)
+  sharded.py    — S hash-partitioned trees in one stacked state
   wal.py        — durability: the CRC-framed, sequence-numbered WAL, atomic
                   snapshots and the `Durability` manager (restore())
   engine.py     — the host-side `SLSM` engine
 """
+from repro_torch.engine.batching import pad_pow2  # noqa: F401
 from repro_torch.engine.compaction import (CompactionPolicy,  # noqa: F401
                                            LevelingPolicy, TieringPolicy)
 from repro_torch.engine.engine import SLSM, reject_reserved  # noqa: F401
 from repro_torch.engine.levels import LevelState  # noqa: F401
 from repro_torch.engine.memtable import SLSMState, init_state  # noqa: F401
 from repro_torch.engine.scheduler import (MergeScheduler,  # noqa: F401
-                                          MergeStep)
+                                          MergeStep, backlog_cost)
+from repro_torch.engine.sharded import ShardedSLSM, shard_ids  # noqa: F401
 from repro_torch.engine import wal  # noqa: F401
 from repro_torch.engine.wal import (Durability, SnapshotError,  # noqa: F401
                                     WalRecord, WalTailer, WalWriter,

@@ -40,7 +40,7 @@ def strided_fences(fences: torch.Tensor, stride: int) -> torch.Tensor:
     """A level's effective fence array under the stride view: every
     stride-th fence (an (mu*stride)-wide page window). Stride 1 returns
     the physical array untouched."""
-    return fences[:, ::stride].contiguous() if stride > 1 else fences
+    return fences[..., ::stride].contiguous() if stride > 1 else fences
 
 
 def fence_window_idx(queries, fences, keys, count, mu: int) -> torch.Tensor:
@@ -52,8 +52,10 @@ def fence_window_idx(queries, fences, keys, count, mu: int) -> torch.Tensor:
 
 
 def in_window(qs, mins, maxs) -> torch.Tensor:
-    """(D, Q) mask: query q lies in run d's [min, max] window."""
-    return (qs[None, :] >= mins[:, None]) & (qs[None, :] <= maxs[:, None])
+    """(D, Q) mask: query q lies in run d's [min, max] window (with the
+    operands' leading shard dimension, if any)."""
+    q = qs[..., None, :]
+    return (q >= mins[..., :, None]) & (q <= maxs[..., :, None])
 
 
 def candidate_gate(qs, blooms, mins, maxs, k: int,
@@ -87,11 +89,12 @@ def fence_window_bounds(lo, hi, fences, keys, counts, mu: int):
     level's D runs, located through the fence pointers (paper 2.4/2.9):
     the page each bound falls in, then a search inside that mu-wide page.
     lo/hi (Q,), fences (D, F), keys (D, cap), counts (D,) -> (start, end)
-    (D, Q) int32 with start <= end <= count."""
+    (D, Q) int32 with start <= end <= count; fences, keys and counts may
+    carry a leading shard dimension (the windows are every shard's)."""
     def locate(q):
         start, off, _ = page_search(q, fences, keys, mu)
         return start + off
 
     start, end = locate(lo), locate(hi)
-    end = torch.minimum(end, counts[:, None].to(end.dtype))
+    end = torch.minimum(end, counts[..., None].to(end.dtype))
     return torch.minimum(start, end).to(torch.int32), end.to(torch.int32)

@@ -35,6 +35,11 @@ def pad_to(qs: np.ndarray, width: int) -> np.ndarray:
     return out
 
 
+def pad_pow2(qs: np.ndarray) -> np.ndarray:
+    """Pad a query vector with KEY_EMPTY to its `bucket_pow2` width."""
+    return pad_to(qs, bucket_pow2(len(qs)))
+
+
 def _grid_bucket(grid: tuple, n: int) -> int:
     """Smallest bucket of `grid` holding n (pow2 past the grid)."""
     for b in grid:

@@ -361,45 +361,14 @@ class SLSM:
         # synced before this call returns (log-before-ack)
         log = self.durability is not None and not self._replaying
         if log:
-            for ch in chunks:
-                if ch.kind == "write":
-                    k = np.asarray(ch.keys, np.int32).reshape(-1)
-                    if k.size:
-                        w = (np.ones_like(k) if ch.wts is None
-                             else np.asarray(ch.wts, np.int32).reshape(-1))
-                        self.durability.log_write(
-                            k, np.asarray(ch.vals, np.int32).reshape(-1), w)
+            TP.log_write_chunks(self.durability, chunks)
         results = [0] * len(chunks)
         # stream-ordered (chunk index, chunk); an oversized write splits
         # across segments under one index
         work = list(enumerate(chunks))
         while work:
             self.scheduler.ensure_stage_space()
-            budget = self.tape_write_capacity()
-            seg, seg_idx = [], []
-            while work:
-                i, ch = work[0]
-                if ch.kind == "write":
-                    k = np.asarray(ch.keys, np.int32).reshape(-1)
-                    v = np.asarray(ch.vals, np.int32).reshape(-1)
-                    w = (np.ones_like(k) if ch.wts is None
-                         else np.asarray(ch.wts, np.int32).reshape(-1))
-                    if budget <= 0:
-                        break
-                    if k.size > budget:
-                        seg.append(TP.TapeChunk("write", k[:budget],
-                                                v[:budget], w[:budget]))
-                        seg_idx.append(i)
-                        work[0] = (i, TP.TapeChunk("write", k[budget:],
-                                                   v[budget:], w[budget:]))
-                        budget = 0
-                        continue
-                    budget -= k.size
-                seg.append(ch)
-                seg_idx.append(i)
-                work.pop(0)
-            if not seg:
-                raise RuntimeError("tape segmentation made no progress")
+            seg, seg_idx = TP.take_segment(work, self.tape_write_capacity())
             seals = TP.tape_seal_bound(self.p_active,
                                        int(self.state.stage_count), seg)
             if seals:

@@ -36,13 +36,16 @@ class LevelState(NamedTuple):
     n_runs: torch.Tensor  # () occupied run slots (oldest = slot 0)
 
 
-def empty_level(p: SLSMParams, level: int, device) -> LevelState:
-    """Fresh all-empty tier with `level_cap(level)` geometry."""
+def empty_level(p: SLSMParams, level: int, device,
+                n_shards: int | None = None) -> LevelState:
+    """Fresh all-empty tier with `level_cap(level)` geometry (with
+    `n_shards`, a leading shard dimension on every leaf)."""
     cap = p.level_cap(level)
     w = p.bloom_words_physical(cap, p.level_eps(level))
+    lead = () if n_shards is None else (n_shards,)
 
     def full(shape, fill):
-        return torch.full(shape, fill, dtype=I32, device=device)
+        return torch.full(lead + shape, fill, dtype=I32, device=device)
 
     return LevelState(
         keys=full((p.D, cap), _KEY_EMPTY), vals=full((p.D, cap), 0),

@@ -48,13 +48,17 @@ class SLSMState(NamedTuple):
     levels: Tuple[LevelState, ...]
 
 
-def init_state(p: SLSMParams, device, n_levels: int = 0) -> SLSMState:
+def init_state(p: SLSMParams, device, n_levels: int = 0,
+               n_shards: int | None = None) -> SLSMState:
     """Fresh engine state on `device` with `n_levels` disk tiers
-    preallocated (`SLSM` grows them lazily from 0)."""
+    preallocated (`SLSM` grows them lazily from 0). With `n_shards`
+    every leaf gains a leading shard dimension (the sharded engine's
+    stacked state)."""
     wb = p.bloom_words_physical(p.Rn, p.mem_eps)
+    lead = () if n_shards is None else (n_shards,)
 
     def full(shape, fill):
-        return torch.full(shape, fill, dtype=I32, device=device)
+        return torch.full(lead + shape, fill, dtype=I32, device=device)
 
     return SLSMState(
         stage_keys=full((p.stage_cap,), _KEY_EMPTY),
@@ -72,7 +76,8 @@ def init_state(p: SLSMParams, device, n_levels: int = 0) -> SLSMState:
         buf_blooms=full((p.R, wb), 0),
         run_count=full((), 0),
         next_seq=full((), 0),
-        levels=tuple(empty_level(p, lvl, device) for lvl in range(n_levels)),
+        levels=tuple(empty_level(p, lvl, device, n_shards)
+                     for lvl in range(n_levels)),
     )
 
 
@@ -82,28 +87,32 @@ def init_state(p: SLSMParams, device, n_levels: int = 0) -> SLSMState:
 
 def stage_append(p: SLSMParams, state: SLSMState, keys: torch.Tensor,
                  vals: torch.Tensor, wts: torch.Tensor,
-                 n_valid: int) -> SLSMState:
+                 n_valid) -> SLSMState:
     """Append an Rn-sized chunk into the active run, then re-sort + dedup
     (newest wins: each record retracts its predecessor, so keeping the
     newest IS the telescoped weight sum).
 
-    `stage_count` is read on the host: the staging region is written at
-    that offset. Trap T4: the reference's `dynamic_update_slice` clamps
-    its start so the chunk fits; the same clamp is written out here."""
+    A state with a leading shard dimension takes an (S, Rn) chunk and an
+    (S,) tensor `n_valid`, a row a shard (the reference's op under
+    `jax.vmap`); every shard is re-sorted, those with no lane included.
+    The chunk is written at each shard's `stage_count`. Trap T4: the
+    reference's `dynamic_update_slice` clamps that start so the chunk
+    fits; the same clamp is written out here."""
     rn = p.Rn
     pos = torch.arange(rn, dtype=I32, device=keys.device)
-    valid = pos < n_valid
+    n = n_valid[..., None] if torch.is_tensor(n_valid) else n_valid
+    valid = pos < n
     ck = torch.where(valid, keys, _KEY_EMPTY)
     cw = torch.where(valid, wts, 0)
     # seqnos only on valid lanes (padded lanes get the dead value 0)
-    cs = torch.where(valid, state.next_seq + pos, 0)
-    start = min(max(int(state.stage_count), 0), p.stage_cap - rn)
-    sk, sv, sw, ss = (a.clone() for a in (state.stage_keys, state.stage_vals,
-                                          state.stage_wts, state.stage_seqs))
-    sk[start:start + rn] = ck
-    sv[start:start + rn] = vals
-    sw[start:start + rn] = cw
-    ss[start:start + rn] = cs
+    cs = torch.where(valid, state.next_seq[..., None] + pos, 0)
+    start = state.stage_count.clamp(0, p.stage_cap - rn)
+    at = (start[..., None] + pos).long()
+    sk, sv, sw, ss = (a.clone().scatter_(-1, at, c)
+                      for a, c in ((state.stage_keys, ck),
+                                   (state.stage_vals, vals),
+                                   (state.stage_wts, cw),
+                                   (state.stage_seqs, cs)))
     k, v, w, s = RU.sort_records(sk, sv, sw, ss)
     ok = RU.survivor_mask(k, w, drop_annihilated=False)
     k, v, w, s, cnt = RU.compact(k, v, w, s, ok)

@@ -31,7 +31,14 @@ gathered front-compacted into one candidate row of width
 same mask to count/sum.
 
 PyTorch runs eagerly, so the reference's `*_impl` forms and their jitted
-wrappers are one function here.
+wrappers are one function here. The dense lookup, the scans and the
+aggregates also take a state with a leading shard dimension (the
+sharded engine's stacked state, `engine.sharded`): every op is then the
+single-tree op batched over the shards, as the reference vmaps it — one
+`bloom_probe` launch a batch and one `fence_lookup` launch a level for
+all shards, and each scan batch's S x Q candidate rows in one
+`range_merge` call. Queries are (S, Q) there (each shard its own), scan
+windows (Q,) (every shard the same).
 """
 from __future__ import annotations
 
@@ -66,34 +73,37 @@ def consider(best_seq, best_val, best_wt, seq_c, val_c, wt_c):
 def _pick_newest(seqs, vals, wts):
     """Per query (column) the row with the highest seqno (first on ties,
     as `argmax` picks)."""
-    j = torch.argmax(seqs, dim=0, keepdim=True)
-    return seqs.gather(0, j)[0], vals.gather(0, j)[0], wts.gather(0, j)[0]
+    j = torch.argmax(seqs, dim=-2, keepdim=True)
+    return (seqs.gather(-2, j).squeeze(-2), vals.gather(-2, j).squeeze(-2),
+            wts.gather(-2, j).squeeze(-2))
 
 
 def search_stage(state: SLSMState, qs: torch.Tensor):
     """Probe the staging buffer for Q queries; per-query (seq, val, wt)
     with seq=SEQ_NONE on a miss."""
-    eq = state.stage_keys[None, :] == qs[:, None]            # (Q, 2Rn)
-    seqm = torch.where(eq, state.stage_seqs[None, :], _SEQ_NONE)
-    j = torch.argmax(seqm, dim=1)
-    seq_c = seqm.gather(1, j[:, None])[:, 0]
+    eq = state.stage_keys[..., None, :] == qs[..., :, None]   # (Q, 2Rn)
+    seqm = torch.where(eq, state.stage_seqs[..., None, :], _SEQ_NONE)
+    j = torch.argmax(seqm, dim=-1)
+    seq_c = seqm.gather(-1, j[..., None])[..., 0]
     hit = seq_c >= 0
-    return (seq_c, torch.where(hit, state.stage_vals[j], 0),
-            torch.where(hit, state.stage_wts[j], 0))
+    return (seq_c, torch.where(hit, state.stage_vals.gather(-1, j), 0),
+            torch.where(hit, state.stage_wts.gather(-1, j), 0))
 
 
 def search_memory_runs(state: SLSMState, qs: torch.Tensor):
     """All R sealed memory runs in one pass (paper 2.2/2.7): a binary
     search per (run, query), newest-wins across runs."""
     keys = state.buf_keys
-    r_n, rn = keys.shape
-    i = torch.searchsorted(keys, qs.expand(r_n, -1).contiguous())  # (R, Q)
+    lead, (r_n, rn) = keys.shape[:-2], keys.shape[-2:]
+    i = torch.searchsorted(
+        keys, qs.unsqueeze(-2).expand(*lead, r_n, -1).contiguous())  # (R, Q)
     ic = i.clamp(max=rn - 1)
-    hit = (i < state.buf_counts[:, None]) & (keys.gather(1, ic) == qs)
+    hit = ((i < state.buf_counts[..., None])
+           & (keys.gather(-1, ic) == qs.unsqueeze(-2)))
     return _pick_newest(
-        torch.where(hit, state.buf_seqs.gather(1, ic), _SEQ_NONE),
-        torch.where(hit, state.buf_vals.gather(1, ic), 0),
-        torch.where(hit, state.buf_wts.gather(1, ic), 0))
+        torch.where(hit, state.buf_seqs.gather(-1, ic), _SEQ_NONE),
+        torch.where(hit, state.buf_vals.gather(-1, ic), 0),
+        torch.where(hit, state.buf_wts.gather(-1, ic), 0))
 
 
 def bloom_verdicts(p: SLSMParams, levels, qs: torch.Tensor, which=None):
@@ -120,9 +130,9 @@ def search_level_dense(p: SLSMParams, lv: LevelState, level: int,
                               lv.counts, mu_eff)
     idxc = idxc.long()
     return _pick_newest(
-        torch.where(hit, lv.seqs.gather(1, idxc), _SEQ_NONE),
-        torch.where(hit, lv.vals.gather(1, idxc), 0),
-        torch.where(hit, lv.wts.gather(1, idxc), 0))
+        torch.where(hit, lv.seqs.gather(-1, idxc), _SEQ_NONE),
+        torch.where(hit, lv.vals.gather(-1, idxc), 0),
+        torch.where(hit, lv.wts.gather(-1, idxc), 0))
 
 
 def _run_key(run: torch.Tensor, key: torch.Tensor) -> torch.Tensor:
@@ -236,9 +246,12 @@ def lookup_many(p: SLSMParams, state: SLSMState, qs: torch.Tensor,
                 n_valid: int, sparse: bool = False, skip_empty: bool = False,
                 occupancy=None):
     """Padded-batch point lookup: `lookup_batch` over qs[:n_valid]; padded
-    lanes report found=False, val=0."""
+    lanes report found=False, val=0. Sharded (qs (S, Q)), `n_valid` is
+    an (S,) tensor of each shard's live lanes."""
     vals, found = lookup_batch(p, state, qs, sparse, skip_empty, occupancy)
-    lane = torch.arange(qs.shape[0], device=qs.device) < n_valid
+    if torch.is_tensor(n_valid):
+        n_valid = n_valid[..., None]
+    lane = torch.arange(qs.shape[-1], device=qs.device) < n_valid
     found = found & lane
     return torch.where(found, vals, 0), found
 
@@ -272,43 +285,49 @@ def _range_group_bounds(p: SLSMParams, state: SLSMState, los: torch.Tensor,
     """Per-structure [start, end) window bounds for Q scans: a list of
     ``(keys2d (N, cap), vals2d, wts2d, seqs2d, starts (Q, N),
     ends (Q, N))`` groups — the staging buffer, the sealed memory runs,
-    then each materialized disk level (through its fences).
+    then each materialized disk level (through its fences); a state
+    with a leading shard dimension gives each of them that dimension.
 
     Trap T5: the reference skips a level no window touches with a
-    `lax.cond`; here the bounds are always computed and replaced by
-    zeros when nothing is touched, so `starts` (which the budget cut
-    reads) match the reference."""
-    q_n = los.shape[0]
-
+    `lax.cond` (a select per shard under `vmap`); here the bounds are
+    always computed and replaced by zeros when nothing is touched, so
+    `starts` (which the budget cut reads) match the reference."""
     def sorted_bounds(keys, counts):
-        # keys (N, cap) sorted rows, counts (N,) -> (N, Q) bounds
-        n = keys.shape[0]
-        start = torch.searchsorted(keys, los.expand(n, -1).contiguous())
+        # keys (..., N, cap) sorted rows, counts (..., N) -> (..., N, Q)
+        rows = keys.shape[:-1]
+        start = torch.searchsorted(keys, los.expand(*rows, -1).contiguous())
         end = torch.minimum(
-            torch.searchsorted(keys, his.expand(n, -1).contiguous()),
-            counts[:, None].long())
+            torch.searchsorted(keys, his.expand(*rows, -1).contiguous()),
+            counts[..., None].long())
         return torch.minimum(start, end).to(I32), end.to(I32)
 
     groups = []
-    st, en = sorted_bounds(state.stage_keys[None], state.stage_count[None])
-    groups.append((state.stage_keys[None], state.stage_vals[None],
-                   state.stage_wts[None], state.stage_seqs[None],
-                   st.T, en.T))
+    stage = (state.stage_keys[..., None, :], state.stage_vals[..., None, :],
+             state.stage_wts[..., None, :], state.stage_seqs[..., None, :])
+    st, en = sorted_bounds(stage[0], state.stage_count[..., None])
+    groups.append(stage + (st.transpose(-1, -2), en.transpose(-1, -2)))
     st, en = sorted_bounds(state.buf_keys, state.buf_counts)
     groups.append((state.buf_keys, state.buf_vals, state.buf_wts,
-                   state.buf_seqs, st.T, en.T))
+                   state.buf_seqs, st.transpose(-1, -2),
+                   en.transpose(-1, -2)))
     for level, lv in enumerate(state.levels):
         stride, mu_eff = p.fence_view(level)
         fences = BE.strided_fences(lv.fences, stride)
         st, en = BE.fence_window_bounds(los, his, fences, lv.keys, lv.counts,
                                         mu_eff)
-        touched = ((lv.mins[None, :] < his[:, None])
-                   & (lv.maxs[None, :] >= los[:, None])
-                   & (lv.counts[None, :] > 0)).any()
-        st = torch.where(touched, st.T, 0)
-        en = torch.where(touched, en.T, 0)
+        touched = ((lv.mins[..., None, :] < his[:, None])
+                   & (lv.maxs[..., None, :] >= los[:, None])
+                   & (lv.counts[..., None, :] > 0)).flatten(-2).any(-1)
+        st = torch.where(touched[..., None, None], st.transpose(-1, -2), 0)
+        en = torch.where(touched[..., None, None], en.transpose(-1, -2), 0)
         groups.append((lv.keys, lv.vals, lv.wts, lv.seqs, st, en))
     return groups
+
+
+def _take(lane: torch.Tensor, flat: torch.Tensor) -> torch.Tensor:
+    """lane (..., N, cap), flat (..., Q, C) indices into each row-major
+    (N, cap) block -> (..., Q, C) values."""
+    return lane.flatten(-2).gather(-1, flat.flatten(-2)).view(flat.shape)
 
 
 def _gather_candidates(p: SLSMParams, state: SLSMState, los: torch.Tensor,
@@ -321,62 +340,77 @@ def _gather_candidates(p: SLSMParams, state: SLSMState, los: torch.Tensor,
 
     Returns ``(k, v, w, s, offsets, partial)``: (Q, C) candidate lanes
     (KEY_EMPTY / zero past each row's fill), (Q, P+1) int32 segment
-    boundaries and the (Q, P) per-part overflow flags."""
+    boundaries and the (Q, P) per-part overflow flags — each with the
+    state's leading shard dimension, if it has one."""
     cand = p.range_cand_eff(len(state.levels))
-    q_n = los.shape[0]
+    lead, q_n = tuple(state.stage_count.shape), los.shape[0]
     dev = los.device
 
     groups = _range_group_bounds(p, state, los, his)
-    starts = torch.cat([g[4] for g in groups], dim=1).long()   # (Q, P)
-    ends = torch.cat([g[5] for g in groups], dim=1).long()
+    starts = torch.cat([g[4] for g in groups], dim=-1).long()  # (Q, P)
+    ends = torch.cat([g[5] for g in groups], dim=-1).long()
     exts = (ends - starts).clamp(min=0)
-    n_parts = starts.shape[1]
+    n_parts = starts.shape[-1]
 
     # sequential budget fill: part p gets clip(C - cum_p, 0, ext_p) slots
-    cum_full = torch.cumsum(exts, dim=1)
-    cum_full_ex = torch.cat([exts.new_zeros((q_n, 1)), cum_full[:, :-1]],
-                            dim=1)
+    zero = exts.new_zeros(exts.shape[:-1] + (1,))
+    cum_full = torch.cumsum(exts, dim=-1)
+    cum_full_ex = torch.cat([zero, cum_full[..., :-1]], dim=-1)
     taken = torch.minimum((cand - cum_full_ex).clamp(min=0), exts)
     partial = taken < exts
-    offsets = torch.cat([taken.new_zeros((q_n, 1)),
-                         torch.cumsum(taken, dim=1)], dim=1)
-    total = offsets[:, -1]
+    offsets = torch.cat([zero, torch.cumsum(taken, dim=-1)], dim=-1)
+    total = offsets[..., -1]
 
     # lane j of a row belongs to the part whose span covers j
     j = torch.arange(cand, device=dev)
-    part = torch.searchsorted(offsets, j.expand(q_n, -1).contiguous(),
-                              right=True) - 1                   # (Q, C)
+    part = torch.searchsorted(
+        offsets, j.expand(*offsets.shape[:-1], -1).contiguous(),
+        right=True) - 1                                         # (Q, C)
     part_c = part.clamp(0, n_parts - 1)
-    src = starts.gather(1, part_c) + j[None, :] - offsets.gather(1, part_c)
+    src = starts.gather(-1, part_c) + j - offsets.gather(-1, part_c)
 
-    k = torch.full((q_n, cand), _KEY_EMPTY, dtype=I32, device=dev)
-    v = torch.zeros((q_n, cand), dtype=I32, device=dev)
+    k = torch.full(lead + (q_n, cand), _KEY_EMPTY, dtype=I32, device=dev)
+    v = torch.zeros(lead + (q_n, cand), dtype=I32, device=dev)
     w = torch.zeros_like(v)
     s = torch.zeros_like(v)
-    cut_keys = torch.full((q_n, n_parts), _KEY_EMPTY, dtype=I32, device=dev)
+    cut_keys = torch.full(lead + (q_n, n_parts), _KEY_EMPTY, dtype=I32,
+                          device=dev)
     g0 = 0
     for gk, gv, gw, gs, gst, _ in groups:
-        n_g, cap_g = gk.shape
-        in_g = (part >= g0) & (part < g0 + n_g) & (j[None, :] < total[:, None])
+        n_g, cap_g = gk.shape[-2:]
+        in_g = (part >= g0) & (part < g0 + n_g) & (j < total[..., None])
         flat = ((part - g0).clamp(0, n_g - 1) * cap_g
                 + src.clamp(0, cap_g - 1))
-        k = torch.where(in_g, gk.reshape(-1)[flat], k)
-        v = torch.where(in_g, gv.reshape(-1)[flat], v)
-        w = torch.where(in_g, gw.reshape(-1)[flat], w)
-        s = torch.where(in_g, gs.reshape(-1)[flat], s)
-        cut_idx = (gst.long() + taken[:, g0:g0 + n_g]).clamp(0, cap_g - 1)
-        d_iota = torch.arange(n_g, device=dev)[None, :]
-        cut_keys[:, g0:g0 + n_g] = torch.where(
-            partial[:, g0:g0 + n_g], gk[d_iota, cut_idx], _KEY_EMPTY)
+        k = torch.where(in_g, _take(gk, flat), k)
+        v = torch.where(in_g, _take(gv, flat), v)
+        w = torch.where(in_g, _take(gw, flat), w)
+        s = torch.where(in_g, _take(gs, flat), s)
+        cut_idx = (gst.long() + taken[..., g0:g0 + n_g]).clamp(0, cap_g - 1)
+        cut_at = gk.gather(-1, cut_idx.transpose(-1, -2)).transpose(-1, -2)
+        cut_keys[..., g0:g0 + n_g] = torch.where(
+            partial[..., g0:g0 + n_g], cut_at, _KEY_EMPTY)
         g0 += n_g
-    cut = cut_keys.min(dim=1).values                            # (Q,)
+    cut = cut_keys.min(dim=-1).values                           # (Q,)
 
-    ok = k < cut[:, None]
+    ok = k < cut[..., None]
     k = torch.where(ok, k, _KEY_EMPTY)
     v = torch.where(ok, v, 0)
     w = torch.where(ok, w, 0)
     s = torch.where(ok, s, 0)
     return k, v, w, s, offsets.to(I32), partial
+
+
+def _merge_rows(k, v, w, s, offsets):
+    """`range_merge` over every candidate row at once — a sharded
+    state's S x Q rows go in one call — with the rows' shape kept."""
+    shape = k.shape
+
+    def rows(a):
+        return a.reshape(-1, a.shape[-1])
+
+    outs = BE.range_merge(rows(k), rows(v), rows(w), rows(s), rows(offsets),
+                          True)
+    return tuple(o.reshape(shape) for o in outs)
 
 
 def range_scan(p: SLSMParams, state: SLSMState, los: torch.Tensor,
@@ -387,32 +421,33 @@ def range_scan(p: SLSMParams, state: SLSMState, los: torch.Tensor,
     False iff the row is the whole window."""
     mr = p.max_range
     los, his = los.to(I32), his.to(I32)
-    q_n = los.shape[0]
 
     k, v, w, s, offsets, partial = _gather_candidates(p, state, los, his)
-    k, v, w, s, keep = BE.range_merge(k, v, w, s, offsets, True)
-    live = keep.sum(dim=1).to(I32)
-    pos = torch.cumsum(keep, dim=1) - 1
+    k, v, w, s, keep = _merge_rows(k, v, w, s, offsets)
+    live = keep.sum(dim=-1).to(I32)
+    pos = torch.cumsum(keep, dim=-1) - 1
     # trap T4: the reference scatters kept lanes to their rank and drops
     # ranks >= max_range (and every non-kept lane, sent to max_range);
     # here such lanes land in a spare column that is cut off
     idx = torch.where(keep, pos, mr).clamp(max=mr)
-    out_k = torch.full((q_n, mr + 1), _KEY_EMPTY, dtype=I32, device=k.device)
-    out_v = torch.zeros((q_n, mr + 1), dtype=I32, device=k.device)
-    out_k.scatter_(1, idx, k)
-    out_v.scatter_(1, idx, v)
-    return (out_k[:, :mr], out_v[:, :mr], live.clamp(max=mr),
-            (live > mr) | partial.any(dim=1))
+    shape = k.shape[:-1] + (mr + 1,)
+    out_k = torch.full(shape, _KEY_EMPTY, dtype=I32, device=k.device)
+    out_v = torch.zeros(shape, dtype=I32, device=k.device)
+    out_k.scatter_(-1, idx, k)
+    out_v.scatter_(-1, idx, v)
+    return (out_k[..., :mr], out_v[..., :mr], live.clamp(max=mr),
+            (live > mr) | partial.any(dim=-1))
 
 
 def range_query(p: SLSMParams, state: SLSMState, lo: int, hi: int):
     """All live (key, value) with lo <= key < hi — one row of
-    `range_scan`. Returns (keys, vals, count, truncated)."""
+    `range_scan` (a row a shard, sharded). Returns (keys, vals, count,
+    truncated)."""
     dev = state.stage_keys.device
     k, v, cnt, trunc = range_scan(
         p, state, torch.tensor([lo], dtype=I32, device=dev),
         torch.tensor([hi], dtype=I32, device=dev))
-    return k[0], v[0], cnt[0], trunc[0]
+    return k[..., 0, :], v[..., 0, :], cnt[..., 0], trunc[..., 0]
 
 
 def range_many(p: SLSMParams, state: SLSMState, los: torch.Tensor,
@@ -439,10 +474,10 @@ def aggregate_many(p: SLSMParams, state: SLSMState, los: torch.Tensor,
     zeros / False."""
     los, his = los.to(I32), his.to(I32)
     k, v, w, s, offsets, partial = _gather_candidates(p, state, los, his)
-    k, v, w, s, keep = BE.range_merge(k, v, w, s, offsets, True)
-    counts = keep.sum(dim=1).to(I32)
-    sums = wrap_i32(torch.where(keep, v, 0).sum(dim=1, dtype=torch.int64))
-    trunc = partial.any(dim=1)
+    k, v, w, s, keep = _merge_rows(k, v, w, s, offsets)
+    counts = keep.sum(dim=-1).to(I32)
+    sums = wrap_i32(torch.where(keep, v, 0).sum(dim=-1, dtype=torch.int64))
+    trunc = partial.any(dim=-1)
     lane = torch.arange(los.shape[0], device=los.device) < n_valid
     return (torch.where(lane, counts, 0), torch.where(lane, sums, 0),
             trunc & lane)

@@ -133,6 +133,11 @@ def pending_steps(p: SLSMParams, policy: CompactionPolicy,
     return steps
 
 
+def backlog_cost(steps) -> int:
+    """Total device-op cost of a backlog (telemetry)."""
+    return sum(s.cost for s in steps)
+
+
 def drop_annihilated_into(state, target_level: int) -> bool:
     """Deletes commit when the merge output becomes the deepest data."""
     for lv in state.levels[target_level:]:

@@ -165,6 +165,54 @@ def unpack_tape(p: SLSMParams, chunks: Sequence[TapeChunk], ys) -> List:
     return out
 
 
+def write_lanes(ch: TapeChunk):
+    """A write chunk's (keys, vals, wts) as int32 arrays (wts None: +1)."""
+    k = np.asarray(ch.keys, np.int32).reshape(-1)
+    w = (np.ones_like(k) if ch.wts is None
+         else np.asarray(ch.wts, np.int32).reshape(-1))
+    return k, np.asarray(ch.vals, np.int32).reshape(-1), w
+
+
+def log_write_chunks(durability, chunks: Sequence[TapeChunk]) -> None:
+    """One WAL record a non-empty write chunk, in stream order (the
+    engines sync once the window's results are ready: log-before-ack)."""
+    for ch in chunks:
+        if ch.kind == "write":
+            k, v, w = write_lanes(ch)
+            if k.size:
+                durability.log_write(k, v, w)
+
+
+def take_segment(work: list, budget: int):
+    """Pop the chunks of one tape segment off `work` ((chunk index,
+    chunk) pairs in stream order): reads freely, writes while `budget`
+    write keys last. A write larger than what is left is split; its tail
+    stays at the head of `work` under the same index. Returns ``(seg,
+    seg_idx)``; raises if no chunk fits."""
+    seg, seg_idx = [], []
+    while work:
+        i, ch = work[0]
+        if ch.kind == "write":
+            if budget <= 0:
+                break
+            k, v, w = write_lanes(ch)
+            if k.size > budget:
+                seg.append(TapeChunk("write", k[:budget], v[:budget],
+                                     w[:budget]))
+                seg_idx.append(i)
+                work[0] = (i, TapeChunk("write", k[budget:], v[budget:],
+                                        w[budget:]))
+                budget = 0
+                continue
+            budget -= k.size
+        seg.append(ch)
+        seg_idx.append(i)
+        work.pop(0)
+    if not seg:
+        raise RuntimeError("tape segmentation made no progress")
+    return seg, seg_idx
+
+
 def tape_seal_bound(p: SLSMParams, stage_count: int,
                     chunks: Sequence[TapeChunk]) -> int:
     """Upper bound on the seals a tape can make: one every Rn staged keys

@@ -125,18 +125,24 @@ def kway_geometry(n_runs: int, cap: int):
 
 def kway_merge_plain(k, w, s, ix, n_runs: int):
     """Plain PyTorch version of the k-way merge of `n_runs` runs laid back
-    to back: one stable sort of the (key, seq) composite over the runs
-    taken last run first — the tournament's order, where ties go to the
-    higher run and then to the lower position."""
-    rev = [a.reshape(n_runs, -1).flip(0).reshape(-1) for a in (k, w, s, ix)]
-    order = torch.sort(RU.composite(rev[0], rev[2]), stable=True).indices
-    return tuple(a[order] for a in rev)
+    to back (in each row of a leading batch dimension): one stable sort
+    of the (key, seq) composite over the runs taken last run first — the
+    tournament's order, where ties go to the higher run and then to the
+    lower position."""
+    lead = k.shape[:-1]
+    rev = [a.reshape(*lead, n_runs, -1).flip(-2).reshape(*lead, -1)
+           for a in (k, w, s, ix)]
+    order = torch.sort(RU.composite(rev[0], rev[2]), dim=-1,
+                       stable=True).indices
+    return tuple(a.gather(-1, order) for a in rev)
 
 
 def kway_merge(k, w, s, ix, n_runs: int):
     """Merge `n_runs` (key, seq)-sorted runs of equal length laid back to
     back in four (N,) int32 lanes -> the four merged lanes, in two
-    launches on the card whatever the lanes (up to 1,024 runs)."""
+    launches on the card whatever the lanes (up to 1,024 runs). Lanes
+    (B, N) are B independent merges of one shape — the reference's
+    kernel under `jax.vmap` — in the same two launches."""
     if k.device.type == "cpu":
         return kway_merge_plain(k, w, s, ix, n_runs)
     dev = k.device
@@ -144,25 +150,31 @@ def kway_merge(k, w, s, ix, n_runs: int):
     if dev.type != "cuda" or any(a.device != dev for a in lanes):
         raise ValueError("heap_merge: lanes must share one CUDA device "
                          "(or all lie on the CPU)")
-    if any(a.dtype != torch.int32 or a.dim() != 1 or not a.is_contiguous()
-           or a.shape != k.shape for a in lanes):
-        raise ValueError("heap_merge: four contiguous (N,) int32 lanes "
-                         "expected")
-    if n_runs < 1 or k.shape[0] % n_runs:
-        raise ValueError(f"heap_merge: {k.shape[0]} lanes are not "
+    if any(a.dtype != torch.int32 or a.dim() not in (1, 2)
+           or not a.is_contiguous() or a.shape != k.shape for a in lanes):
+        raise ValueError("heap_merge: four contiguous (N,) or (B, N) int32 "
+                         "lanes expected")
+    batch = k.shape[0] if k.dim() == 2 else 1
+    n_lanes = k.shape[-1]
+    if n_runs < 1 or n_lanes % n_runs:
+        raise ValueError(f"heap_merge: {n_lanes} lanes are not "
                          f"{n_runs} runs of one length")
-    cap = k.shape[0] // n_runs
+    if not 1 <= batch <= 65535:
+        raise ValueError(f"heap_merge: 1 to 65,535 merges a launch, not "
+                         f"{batch}")
+    cap = n_lanes // n_runs
     tile, step, group, tiles, shared = kway_geometry(n_runs, cap)
-    split = torch.empty(tiles * n_runs, dtype=torch.int32, device=dev)
-    who = torch.empty(tiles, dtype=torch.int32, device=dev)
+    split = torch.empty(batch * tiles * n_runs, dtype=torch.int32,
+                        device=dev)
+    who = torch.empty(batch * tiles, dtype=torch.int32, device=dev)
     outs = tuple(torch.empty_like(a) for a in lanes)
     samples = n_runs * -(-cap // step)
     ctas = (min(132, -(-samples // KWAY_SPLIT_SAMPLES)) if shared
             else min(SPLIT_CTAS, -(-samples // 32)))
-    fn = _build.bind("heap_merge", "heap_merge_kway_launch", 10, 7)
+    fn = _build.bind("heap_merge", "heap_merge_kway_launch", 10, 8)
     _build.check(fn(*(a.data_ptr() for a in lanes), split.data_ptr(),
                     who.data_ptr(), *(o.data_ptr() for o in outs), n_runs,
-                    cap, step, group, tile, ctas, int(shared),
+                    cap, step, group, tile, ctas, int(shared), batch,
                     torch.cuda.current_stream(dev).cuda_stream),
                  "heap_merge")
     kway_merge.launches += 2          # the split and the merge kernel
@@ -186,21 +198,30 @@ def tournament(k, w, s, ix, cap: int, n_runs: int, round_fn=None):
 
 def heap_merge(keys2d, vals2d, wts2d, seqs2d, drop_annihilated: bool):
     """Merge k sorted runs (k, cap) -> compacted run (k*cap,), newest
-    wins. Returns (keys, vals, wts, seqs, count)."""
-    n_runs, cap = keys2d.shape
+    wins. Returns (keys, vals, wts, seqs, count). A leading batch
+    dimension — (B, k, cap) -> (B, k*cap) lanes and counts (B,) — merges
+    B stacks of runs in one `kway_merge` call (the sharded engine's
+    masked step)."""
+    lead = keys2d.shape[:-2]
+    n_runs, cap = keys2d.shape[-2:]
     total = n_runs * cap
     if total >= 2 ** 31:
         raise ValueError(f"heap_merge: {total} lanes exceed int32 indices")
+
+    def flat(a):
+        return a.reshape(*lead, total).contiguous()
+
     ix = torch.arange(total, dtype=torch.int32, device=keys2d.device)
-    mk, mw, ms, mi = kway_merge(keys2d.reshape(-1).contiguous(),
-                                wts2d.reshape(-1).contiguous(),
-                                seqs2d.reshape(-1).contiguous(), ix, n_runs)
+    ix = ix.expand(*lead, total).contiguous()
+    mk, mw, ms, mi = kway_merge(flat(keys2d), flat(wts2d), flat(seqs2d), ix,
+                                n_runs)
     valid = RU.survivor_mask(mk, mw, drop_annihilated)
     order = RU.partition_order(valid)
-    ok = valid[order]
-    out_k = torch.where(ok, mk[order], _KEY_EMPTY)
-    out_w = torch.where(ok, mw[order], 0)
-    out_s = torch.where(ok, ms[order], 0)
+    ok = valid.gather(-1, order)
+    out_k = torch.where(ok, mk.gather(-1, order), _KEY_EMPTY)
+    out_w = torch.where(ok, mw.gather(-1, order), 0)
+    out_s = torch.where(ok, ms.gather(-1, order), 0)
     # payload gather — survivors only (annihilated rows never touch vals)
-    out_v = torch.where(ok, vals2d.reshape(-1)[mi[order].long()], 0)
-    return out_k, out_v, out_w, out_s, valid.sum().to(torch.int32)
+    src = mi.gather(-1, order).long()
+    out_v = torch.where(ok, flat(vals2d).gather(-1, src), 0)
+    return out_k, out_v, out_w, out_s, valid.sum(dim=-1).to(torch.int32)

@@ -791,3 +791,202 @@ def test_durable_engine_on_card_restores_on_card_and_cpu(cuda, tmp_path,
         assert eng.stats["retunes"] >= 1
         assert on_card.tuner.active == on_cpu.tuner.active
         assert on_card.runs == on_cpu.runs
+
+
+# --------------------------------------------------------------------------
+# the sharded engine: the engine kernels with a leading shard dimension
+# --------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q_n", [1, 1000])
+def test_bloom_probe_shards_kernel_matches_plain_and_single_launches(cuda,
+                                                                     q_n):
+    """(S, D, W) stacks of three levels (odd D: a run group never spans
+    two shards) and (S, Q) keys in one launch, against the plain version
+    and against one single-tree launch a shard."""
+    rng = np.random.default_rng(30)
+    n_shards, geoms = 3, [(3, 60, 40, 6, 1000), (5, 200, 64, 10, None),
+                          (1, 30, 8, 13, 250)]
+    stacks, keys = [], []
+    for d_n, n, words, k, bits in geoms:
+        per = [_level(rng, d_n, n, words, k, bits, cuda)
+               for _ in range(n_shards)]
+        stacks.append((torch.stack([b for b, _ in per]), k, bits))
+        keys.append(np.stack([m for _, m in per]))
+    q = torch.stack([_t(_keys(rng, np.concatenate(
+        [m[s].reshape(-1) for m in keys]), q_n), cuda)
+        for s in range(n_shards)])
+    got = _levels_equal(stacks, q)
+    for out, (b, k, bits) in zip(got, stacks):
+        assert out.shape == (n_shards, b.shape[1], q_n)
+        for s in range(n_shards):
+            assert torch.equal(out[s], KBP.bloom_probe_many(b[s], q[s], k,
+                                                            bits))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fence_bytes", [None, 64])
+def test_fence_lookup_shards_kernel_matches_plain_and_single_launches(
+        cuda, monkeypatch, fence_bytes):
+    """(S, D) runs searching their own shard's (S, Q) query row in one
+    launch, fences staged whole or every G-th."""
+    if fence_bytes:
+        monkeypatch.setattr(KFL.ops, "FENCE_SMEM_BYTES", fence_bytes)
+    rng = np.random.default_rng(31)
+    n_shards, d_n, cap, mu = 4, 5, 4096, 16
+    runs = [_sorted_runs(rng, d_n, cap, 1 << 20) for _ in range(n_shards)]
+    keys = np.stack([k for k, _ in runs])
+    counts = np.stack([c for _, c in runs])
+    fences = np.ascontiguousarray(keys[:, :, ::mu])
+    qs = np.stack([_keys(rng, keys[s][keys[s] != KEY_EMPTY], 777)
+                   for s in range(n_shards)])
+    args = [_t(a, cuda) for a in (qs, fences, keys, counts)]
+    before = KFL.fence_lookup_many.launches
+    got = KFL.fence_lookup_many(*args, mu)
+    torch.cuda.synchronize()
+    assert KFL.fence_lookup_many.launches == before + 1
+    assert got.shape == (n_shards, d_n, 777)
+    assert torch.equal(got, KFL.fence_lookup_plain(*args, mu))
+    assert (got >= 0).any()
+    for s in range(n_shards):
+        assert torch.equal(got[s], KFL.fence_lookup_many(
+            *(a[s] for a in args), mu))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,sample_bytes", [(2, None), (20, None),
+                                            (20, 64)])
+def test_kway_merge_batch_kernel_matches_plain_and_single_launches(
+        cuda, monkeypatch, k, sample_bytes):
+    """A batch of 3 merges (a masked step of three shards) in the same
+    two launches as one merge, samples in shared memory or in place."""
+    if sample_bytes:
+        monkeypatch.setattr(KHM.ops, "KWAY_SAMPLE_BYTES", sample_bytes)
+    rng = np.random.default_rng(32 + k)
+    batch = [_runs(rng, k, 3000) for _ in range(3)]
+    lanes = [_t(np.stack([b[i].reshape(-1) for b in batch]), cuda)
+             for i in (0, 2, 3)]
+    ix = torch.arange(k * 3000, dtype=torch.int32,
+                      device=cuda).expand(3, -1).contiguous()
+    before = KHM.kway_merge.launches
+    got = KHM.kway_merge(*lanes, ix, k)
+    torch.cuda.synchronize()
+    assert KHM.kway_merge.launches == before + 2
+    want = KHM.kway_merge_plain(*lanes, ix, k)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    for b in range(3):
+        one = KHM.kway_merge(*(a[b].contiguous() for a in lanes), ix[b], k)
+        for g, w in zip(got, one):
+            assert torch.equal(g[b], w)
+    for drop in (False, True):
+        full = [_t(np.stack([b[i] for b in batch]), cuda) for i in range(4)]
+        got = KHM.heap_merge(*full, drop)
+        want = KHM.heap_merge(*(a.cpu() for a in full), drop)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+
+
+def _sharded_pair(cuda, n_shards, budget=0):
+    from repro_torch.core.params import SLSMParams
+    from repro_torch.engine import ShardedSLSM
+    p = SLSMParams(R=2, Rn=8, eps=0.02, D=2, m=1.0, mu=4, max_levels=3,
+                   max_range=512, cand_factor=16, merge_budget=budget)
+    return (ShardedSLSM(p, n_shards, device=cuda),
+            ShardedSLSM(p, n_shards, device="cpu"))
+
+
+def _state_equal(a, b):
+    from repro_torch import convert
+    for g, w in zip(convert.state_to_leaves(a.state),
+                    convert.state_to_leaves(b.state)):
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_shards,budget", [(3, 0), (4, 1)])
+def test_sharded_engine_on_card_matches_cpu(cuda, n_shards, budget):
+    """A small fleet on the card and on the CPU through one stream of
+    inserts, deletes, reads and tape windows: the stacked state bitwise
+    equal after every call, every answer equal and oracle-exact."""
+    from repro_torch.core.oracle import DictOracle
+    card, cpu = _sharded_pair(cuda, n_shards, budget)
+    oracle = DictOracle()
+    rng = np.random.default_rng(40 + n_shards)
+    space = 90 * n_shards
+    for step in range(40):
+        ks = rng.integers(0, space, int(rng.integers(1, 60))).astype(np.int32)
+        vs = rng.integers(I32.min, I32.max, ks.size, dtype=np.int64).astype(
+            np.int32)
+        for t in (card, cpu, oracle):
+            t.insert(ks, vs)
+        dels = rng.integers(0, space, 6).astype(np.int32)
+        for t in (card, cpu, oracle):
+            t.delete(dels)
+        _state_equal(card, cpu)
+        if step % 5 == 4:
+            qs = np.arange(-3, space + 3, dtype=np.int32)
+            v, f = card.lookup_many(qs)
+            vo, fo = oracle.lookup(qs)
+            np.testing.assert_array_equal(f, fo)
+            np.testing.assert_array_equal(v[f], vo[fo])
+            lo = rng.integers(0, space, 5)
+            wins = np.stack([lo, lo + 60], 1).astype(np.int32)
+            for a, b in zip(card.range_many(wins), cpu.range_many(wins)):
+                np.testing.assert_array_equal(a, b)
+            for a, b in zip(card.aggregate_many(wins),
+                            cpu.aggregate_many(wins)):
+                np.testing.assert_array_equal(a, b)
+            window = [("write", ks[:8], vs[:8], None),
+                      ("lookup", qs[:8], qs[:8], None),
+                      ("range", lo[:2].astype(np.int32),
+                       (lo[:2] + 40).astype(np.int32), None)]
+            got, want = card.run_tape(window), cpu.run_tape(window)
+            oracle.insert(ks[:8], vs[:8])
+            for g, w in zip(got, want):
+                if isinstance(w, int):
+                    assert g == w
+                else:
+                    for a, b in zip(g, w):
+                        np.testing.assert_array_equal(a, b)
+            _state_equal(card, cpu)
+    assert card.stats["spills"] > 0
+    for name in ("seals", "flushes", "spills", "compactions",
+                 "rows_merged_in", "rows_merged_out", "writes"):
+        assert card.stats[name] == cpu.stats[name], name
+
+
+@pytest.mark.gpu
+def test_sharded_launch_counts_of_a_lookup_batch_and_a_masked_spill(cuda):
+    """One lookup batch: one bloom_probe launch for every level of every
+    shard and at most one fence_lookup launch a level. One masked spill
+    of two or more shards: two heap_merge launches."""
+    from repro_torch.engine import scheduler as SCH
+    card, cpu = _sharded_pair(cuda, 4)
+    rng = np.random.default_rng(44)
+    p = card.p
+    for _ in range(200):
+        ks = rng.integers(0, 360, 10).astype(np.int32)
+        card.insert(ks, ks)
+        cpu.insert(ks, ks)
+        n0, n1 = (lv.n_runs.cpu().numpy() for lv in card.state.levels[:2])
+        mask = (n0 >= p.disk_runs_merged) & (n1 < p.D)
+        if mask.sum() >= 2:
+            break
+    assert mask.sum() >= 2
+    before = KHM.kway_merge.launches
+    card._apply_step(SCH.SPILL, 0, mask)
+    torch.cuda.synchronize()
+    assert KHM.kway_merge.launches == before + 2
+    cpu._apply_step(SCH.SPILL, 0, mask)
+    _state_equal(card, cpu)
+    qs = np.arange(0, 360, dtype=np.int32)
+    b0, f0 = KBP.bloom_probe_levels.launches, KFL.fence_lookup_many.launches
+    got = card.lookup(qs)
+    assert KBP.bloom_probe_levels.launches == b0 + 1
+    assert KFL.fence_lookup_many.launches - f0 <= p.max_levels
+    for a, b in zip(got, cpu.lookup(qs)):
+        np.testing.assert_array_equal(a, b)
+    r0 = KRM.range_merge.launches
+    card.range_many([(0, 100), (50, 300)])
+    assert KRM.range_merge.launches == r0 + 1
