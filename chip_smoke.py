@@ -121,13 +121,43 @@ Phases, in order; any failure raises and exits non-zero:
              without close() and its WAL cut inside the last record,
              `ShardedSLSM.restore` on the card, every answer against the
              oracle of the durable prefix.
+  replicated — a durable leader at the paper's widths with max_levels 2
+             (WAL fsynced under build/replicated) under a quorum-1
+             `Leader` on a fake clock, two followers on the card, a
+             leader and a follower `Server`, driven by `closed_loop`
+             (16 clients, 4 of them on the follower): 1M written keys in
+             requests of 1-800 (a tenth deletes), >= 200K looked up in
+             requests of 1-64, ranges of 1-32 windows. Every leader
+             reply against the oracle at its point in the stream, every
+             follower reply against the oracle of the follower's applied
+             prefix, every acknowledged write at or below quorum_seqno()
+             and in a follower's log; after `converge` the followers'
+             logs byte-identical to the leader's and 1M lookups, 2,048
+             scans and 2,048 aggregates bitwise the leader's (one
+             bloom_probe launch a lookup batch, one range_merge a scan
+             batch); then the lease expires: exactly follower 0
+             promotes, the old leader is fenced by the fence ack (its
+             held write fails), the promoted leader answers as the
+             oracle of its WAL's writes, and with follower 1 and a fresh
+             bootstrap in the old leader's place it acknowledges writes
+             at epoch 1. Prints acknowledged writes/s, reply p50/p99 by
+             kind, windows, blocking reads a window, follower apply
+             rates, lag, fsync ms, promote and bootstrap ms, and the
+             device-busy share of a leader window and a follower apply.
+  replica kill — a leader `Server` at the cascade's geometry in a child
+             process ships over a localhost socket to a follower on the
+             card; SIGKILLed after 200-400 applied records, the follower
+             promotes and answers bitwise as a fresh engine fed the
+             write records of its own WAL, which hold every window the
+             child acknowledged, and takes writes at epoch 1.
              Launches are counted from 0 just before, and read just
              after, the main phase, the adaptive engine's traffic (after
              its warm-up), its tape windows, the scaled run_tape
              engine's windows (not the op-by-op engine's), the durable
-             restore with its reads, and the sharded engine's traffic
-             (after its warm-up); a path that never launches one of the
-             engine's four kernels fails.
+             restore with its reads, the sharded engine's traffic
+             (after its warm-up), the replicated leader and followers
+             apart, and the replica kill's follower; a path that never
+             launches one of the engine's four kernels fails.
   lsm_kernel — the attention kernel against its plain version at the LM
              path's shapes: the tiered cache read in place (bf16 and f32;
              every row it must not read is NaN), the dense cache of
@@ -1018,6 +1048,18 @@ class LaunchTally:
             for k in out:
                 out[k] += self.fns[k].launches
 
+    def fresh(self) -> "LaunchTally":
+        """A tally of the same kernels, every count at 0."""
+        return LaunchTally({k: self.fns[k] for k in self.counts},
+                           {k: self.fns[k] for k in self.rounds})
+
+    def add(self, other: "LaunchTally") -> None:
+        """Add another tally's counts to this one's."""
+        for out, more in ((self.counts, other.counts),
+                          (self.rounds, other.rounds)):
+            for k in out:
+                out[k] += more[k]
+
 
 def wrap_sum(vals) -> int:
     return int(np.int64(vals.astype(np.int64).sum() + 2 ** 31) % 2 ** 32
@@ -1222,11 +1264,9 @@ def profile_phase(eng, seed: int):
 def cascade_phase(device, seed: int):
     """Scaled geometry through deepest-level compactions."""
     from repro_torch.core.oracle import DictOracle
-    from repro_torch.core.params import SLSMParams
     from repro_torch.engine import SLSM
 
-    p = SLSMParams(R=8, Rn=256, eps=1e-3, D=4, m=1.0, mu=64, max_levels=3,
-                   merge_budget=0, range_cand=512)
+    p = cascade_params()
     assert [p.level_cap(i) for i in range(3)] == [2048, 8192, 131072]
     rng = np.random.default_rng(seed + 2)
     eng, oracle = SLSM(p, device=device), DictOracle()
@@ -2537,6 +2577,790 @@ def sharded_cascade_phase(device, seed: int, n_rounds: int = 200):
 
 
 # --------------------------------------------------------------------------
+# replicated phase: a quorum leader, two followers and two servers on the
+# card, through the closed-loop load generator
+# --------------------------------------------------------------------------
+
+REPL_WRITES = 1_000_000         # keys written through the leader's server
+REPL_LOOKUPS = 200_000          # keys looked up there, at least
+REPL_CLIENTS = 16               # closed-loop clients; the last
+REPL_FOLLOWER_CLIENTS = 4       # four read from the follower's server
+REPL_CHECK_LOOKUPS = 1 << 20    # a follower's reads after converge
+REPL_CHECK_SCANS = 2048
+REPL_KILL_AFTER = (200, 401)    # records the follower applies before the
+                                # replica kill's SIGKILL
+REPL_KILL_WINDOWS = 4000        # the killed leader's windows (far past it)
+REPL_LEASE_S = 2.0
+
+
+def repl_requests(rng, n_writes: int, n_lookups: int, follower_every: int,
+                  n_followers: int):
+    """The closed loop's stream, `follower_every` requests a round of
+    which the last `n_followers` go to the follower's server. Leader
+    requests: writes of 1-800 uniform keys of the paper's key space (a
+    tenth of them deletes of written keys), lookups of 1-64 keys (half
+    written, half absent), ranges of 1-32 windows of 256 keys, until
+    `n_writes` keys are written and `n_lookups` looked up. Follower
+    requests: lookups and ranges alike. Returns the `Request`s."""
+    from repro_torch.serve import Request
+    written = np.empty(n_writes + 800, np.int32)
+    n_w = n_q = 0
+
+    def read():
+        nonlocal n_q
+        if rng.random() < 0.97:
+            m = int(rng.integers(1, 65))
+            qs = rng.integers(2 ** KEY_BITS, 2 ** (KEY_BITS + 1), m,
+                              dtype=np.int32)
+            if n_w:
+                half = rng.random(m) < 0.5
+                qs[half] = written[rng.integers(0, n_w, int(half.sum()))]
+            return Request("lookup", qs), m
+        m = int(rng.integers(1, 33))
+        lo = rng.integers(0, 2 ** KEY_BITS - 256, m, dtype=np.int32)
+        return Request("range", lo, lo + 256), 0
+
+    leader, follower = [], []
+    while n_w < n_writes or n_q < n_lookups:
+        if rng.random() < 0.27 and n_w < n_writes:
+            m = int(rng.integers(1, 801))
+            if rng.random() < 0.1 and n_w:
+                leader.append(Request("delete", written[rng.integers(
+                    0, n_w, m)]))
+            else:
+                ks = rng.integers(0, 2 ** KEY_BITS, m, dtype=np.int32)
+                written[n_w:n_w + m] = ks
+                n_w += m
+                leader.append(Request("insert", ks, rng.integers(
+                    -2 ** 31, 2 ** 31 - 1, m, dtype=np.int32)))
+        else:
+            req, m = read()
+            leader.append(req)
+            n_q += m
+    per = follower_every - n_followers
+    for _ in range(-(-len(leader) // per) * n_followers):
+        follower.append(read()[0])
+    out = []
+    for r in range(-(-len(leader) // per)):
+        out += leader[r * per:(r + 1) * per]
+        out += follower[r * n_followers:(r + 1) * n_followers]
+    return out
+
+
+class ReplicatedFront:
+    """The closed loop's server: routes client `c` to the follower's
+    server when ``c >= n_leader_clients``, else to the leader's, and
+    checks every reply as it comes. One `pump(force=True)` serves the
+    leader's window (its reads against the oracle at their point in the
+    stream; its writes held for the quorum), lets follower 1 apply, serves
+    the follower server's window (follower 0's reads against the oracle
+    of the leader's records up to follower 0's applied watermark; then
+    follower 0 applies), and pumps the leader's server idle, which drains
+    the acks and releases the held writes: each released write's window
+    watermark must lie at or below `quorum_seqno()` and in a follower's
+    durable log."""
+
+    def __init__(self, leader, lsrv, fsrv, fols, oracle, n_leader_clients,
+                 tallies):
+        import collections
+        self.leader, self.lsrv, self.fsrv, self.fols = (leader, lsrv, fsrv,
+                                                        fols)
+        self.oracle, self.f_oracle = oracle, DenseOracle(KEY_BITS)
+        self.n_leader = n_leader_clients
+        self.tallies = tallies
+        self.records, self._next_record = [], 0
+        self.l_new, self.f_new, self.held = [], [], {}
+        self._assigned = 0
+        self.syncs = collections.Counter()
+        self.lat = collections.defaultdict(list)
+        self.lag_peak = [0, 0]
+        self.apply_clock = Clock()
+        self.acked_writes = 0
+        dur = leader.drv.durability
+        real = dur.log_write
+
+        def log_write(keys, vals, wts):     # the leader's records, in order
+            seqno = real(keys, vals, wts)
+            self.records.append((seqno, keys.copy(), vals.copy(),
+                                 wts.copy()))
+            return seqno
+
+        dur.log_write = log_write
+
+    @property
+    def counters(self):
+        return self.lsrv.counters + self.fsrv.counters
+
+    def submit(self, client, kind, keys, vals=None):
+        follower = int(client.rsplit("-", 1)[1]) >= self.n_leader
+        t = (self.fsrv if follower else self.lsrv).submit(client, kind, keys,
+                                                          vals)
+        (self.f_new if follower else self.l_new).append(t)
+        return t
+
+    def serve_leader(self, force: bool = True) -> int:
+        """The leader server's window; its writes are held, tagged with
+        the window's watermark (the leader's last seqno after it)."""
+        with self.tallies["leader"]:
+            n, sites = count_syncs(lambda: self.lsrv.pump(force=force))
+        self.syncs.update(sites)
+        wm = self.leader.drv.durability.writer.last_seqno
+        for t in self.l_new[self._assigned:]:
+            if t.kind in ("insert", "delete"):
+                if t.done:
+                    raise AssertionError("a quorum write replied unheld")
+                self.held[id(t)] = (t, wm)
+        self._assigned = len(self.l_new)
+        return n
+
+    def check_leader(self) -> None:
+        """The leader window's tickets in stream order: writes into the
+        oracle (and held), reads against it."""
+        for t in self.l_new:
+            if t.kind == "insert":
+                self.oracle.insert(t.keys, t.vals)
+            elif t.kind == "delete":
+                self.oracle.delete(t.keys)
+            elif t.kind == "lookup":
+                self.oracle.check_lookups(t.keys, *t.result, "leader reply")
+            else:
+                check_scans(self.oracle, np.stack([t.keys, t.vals], 1),
+                            *t.result)
+        self.l_new, self._assigned = [], 0
+        st = self.leader.stats()
+        self.lag_peak = [max(self.lag_peak[0], st["follower_lag_records"]),
+                         max(self.lag_peak[1], st["follower_lag_bytes"])]
+
+    def serve_followers(self, force: bool = True) -> None:
+        fol0, fol1 = self.fols
+        with self.tallies["followers"]:
+            with self.apply_clock:
+                fol1.pump()
+            wm = fol0.last_seqno
+            self.fsrv.pump(force=force)
+        if wm > self.leader.drv.durability.writer.last_seqno:
+            raise AssertionError("a follower ahead of its leader")
+        while (self._next_record < len(self.records)
+               and self.records[self._next_record][0] <= wm):
+            self.f_oracle.apply(*self.records[self._next_record][1:])
+            self._next_record += 1
+        for t in self.f_new:
+            if t.kind == "lookup":
+                self.f_oracle.check_lookups(t.keys, *t.result,
+                                            "follower reply")
+            else:
+                check_scans(self.f_oracle, np.stack([t.keys, t.vals], 1),
+                            *t.result)
+            self.lat["follower " + t.kind].append(t.latency_s)
+        self.f_new = []
+
+    def release(self) -> None:
+        with self.tallies["leader"]:
+            self.lsrv.pump()
+        q = self.leader.quorum_seqno()
+        durable = max(f.last_seqno for f in self.fols)
+        for key, (t, w) in list(self.held.items()):
+            if not t.done:
+                continue
+            if t.error is not None:
+                raise AssertionError(f"a held write failed: {t.error}")
+            if w > q or w > durable:
+                raise AssertionError(f"write acknowledged at watermark {w}"
+                                     f" past quorum_seqno {q} or the "
+                                     f"followers' durable {durable}")
+            del self.held[key]
+            self.acked_writes += 1
+            self.lat["leader " + t.kind].append(t.latency_s)
+
+    def pump(self, force: bool = False) -> int:
+        n = self.serve_leader(force)
+        for t in self.l_new:
+            if t.kind in ("lookup", "range"):
+                self.lat["leader " + t.kind].append(t.latency_s)
+        self.check_leader()
+        self.serve_followers(force)
+        self.release()
+        return n
+
+
+def latency_by_kind(lat: dict) -> dict:
+    out = {}
+    for kind, ts in sorted(lat.items()):
+        us = np.asarray(ts) * 1e6
+        out[kind] = dict(n=int(us.size), p50_us=float(np.percentile(us, 50)),
+                         p99_us=float(np.percentile(us, 99)))
+    return out
+
+
+def same_reads(engines, oracle, rng, pool, n_q: int, n_scan: int,
+               tallies=None) -> list:
+    """`n_q` lookups (half `pool` keys, half absent) in batches of
+    LOOKUP_BATCH, `n_scan` scans and `n_scan` aggregates of 256-key
+    windows in batches of SCAN_BATCH, through every engine: each answer
+    bitwise the first engine's, which is held against `oracle`. With
+    `tallies` (one an engine, None for none), each counts its engine's
+    launches. Returns each later engine's rates."""
+    import contextlib
+    qs = np.concatenate([pool[rng.integers(0, pool.size, n_q // 2)],
+                         rng.integers(2 ** KEY_BITS, 2 ** (KEY_BITS + 1),
+                                      n_q - n_q // 2, dtype=np.int32)])
+    qs = rng.permutation(qs).astype(np.int32)
+    lo = rng.integers(0, 2 ** KEY_BITS - 256, 2 * n_scan, dtype=np.int32)
+    wins = np.stack([lo, lo + 256], axis=1)
+    out = []
+    first = None
+    for e, eng in enumerate(engines):
+        ctx = (tallies[e] if tallies is not None and tallies[e] is not None
+               else contextlib.nullcontext())
+        clocks = [Clock(), Clock(), Clock()]
+        got = []
+        with ctx:
+            for i in range(0, n_q, LOOKUP_BATCH):
+                with clocks[0]:
+                    got.append(eng.lookup_many(qs[i:i + LOOKUP_BATCH]))
+            for i in range(0, n_scan, SCAN_BATCH):
+                with clocks[1]:
+                    got.append(eng.range_many(wins[i:i + SCAN_BATCH]))
+            for i in range(n_scan, 2 * n_scan, SCAN_BATCH):
+                with clocks[2]:
+                    got.append(eng.aggregate_many(wins[i:i + SCAN_BATCH]))
+        if first is None:
+            first = got
+            n_lb = -(-n_q // LOOKUP_BATCH)
+            for j, (v, f) in enumerate(got[:n_lb]):
+                oracle.check_lookups(qs[j * LOOKUP_BATCH:
+                                        (j + 1) * LOOKUP_BATCH], v, f,
+                                     "reads after converge")
+            for j, res in enumerate(got[n_lb:n_lb + n_scan // SCAN_BATCH]):
+                check_scans(oracle, wins[j * SCAN_BATCH:(j + 1) * SCAN_BATCH],
+                            *res)
+            aggs = got[n_lb + n_scan // SCAN_BATCH:]
+            for j, (c, s, tr) in enumerate(aggs):
+                base = n_scan + j * SCAN_BATCH
+                for k, (a, b) in enumerate(wins[base:base + SCAN_BATCH]):
+                    ek, ev = oracle.window(int(a), int(b))
+                    if not tr[k] and (int(c[k]) != len(ek)
+                                      or int(s[k]) != wrap_sum(ev)):
+                        raise AssertionError(f"aggregate {a}:{b} differs")
+            continue
+        for j, (g, w) in enumerate(zip(got, first)):
+            if not all(np.array_equal(a, b) for a, b in zip(g, w)):
+                raise AssertionError(f"engine {e}: read batch {j} differs "
+                                     "from the leader's")
+        out.append(dict(lookups_per_s=n_q / clocks[0].total,
+                        scans_per_s=n_scan / clocks[1].total,
+                        aggregates_per_s=n_scan / clocks[2].total))
+    return out
+
+
+def write_records(path, WAL) -> list:
+    """(keys, vals, wts) of each write record of a `wal.log`."""
+    return [WAL.decode_write(r.payload, r.kind)
+            for r in WAL.read_wal(path)[0] if r.kind in WAL.WRITE_KINDS]
+
+
+def replicated_phase(device, seed: int, tallies, n_writes: int = REPL_WRITES,
+                     n_lookups: int = REPL_LOOKUPS, p=None,
+                     n_check: int = REPL_CHECK_LOOKUPS,
+                     n_check_scans: int = REPL_CHECK_SCANS):
+    """A durable leader (`p`: the paper's widths at max_levels 2, a WAL
+    fsynced under build/replicated) under `Leader(ack_mode="quorum",
+    quorum=1)` on a fake clock, two followers from `add_follower` on the
+    card, a leader `Server` and a follower `Server` (over follower 0),
+    driven by `closed_loop` with REPL_CLIENTS clients (`ReplicatedFront`
+    checks every reply and every acknowledgement). Then two leader
+    windows and two follower applies under the profiler, `converge`, each
+    follower's log against the leader's byte for byte and its reads
+    bitwise against the leader's and the oracle; then the lease expires:
+    exactly one follower promotes, the old leader is fenced by the fence
+    ack (its held write fails with `QuorumAckError`), the promoted leader
+    answers as the oracle of its WAL's write records, the other follower
+    rejoins it and the old leader's place is taken by a fresh bootstrap,
+    and writes at epoch 1 are acknowledged under quorum. `tallies`
+    ("leader", "followers") count the launches of each side."""
+    import gc
+    import shutil
+
+    import torch
+    from repro_torch.configs.slsm_paper import paper_params
+    from repro_torch.engine import SLSM
+    from repro_torch.engine import replication as R
+    from repro_torch.engine import wal as WAL
+    from repro_torch.serve import QuorumAckError, Server, closed_loop
+
+    t_phase = time.perf_counter()
+    p = p or paper_params(max_levels=2, merge_budget=1, range_cand=512)
+    root = ROOT / "build" / "replicated"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    rec = dict(directory=str(root.relative_to(ROOT)), fs_type=fs_type(root))
+    log(f"replicated: WAL directories under {rec['directory']} on "
+        f"{rec['fs_type']}")
+    rng = np.random.default_rng(seed + 31)
+    torch.cuda.reset_peak_memory_stats()
+    fake = FakeClock()
+    # no snapshot in idle gaps: one of a tree at these widths is ~5.8 GB
+    eng = SLSM(p, device=device, durability=WAL.Durability(
+        root / "leader", fsync=True, snapshot_every_bytes=1 << 62))
+    leader = R.Leader(eng, ack_mode="quorum", quorum=1, lease_s=REPL_LEASE_S,
+                      clock=fake)
+    fols = [leader.add_follower(root / f"f{i}", fsync=True, auto_promote=True,
+                                clock=fake) for i in range(2)]
+    for f in fols:
+        f.drv.durability.snapshot_every_bytes = 1 << 62
+    lsrv = Server(eng, role="leader")
+    fsrv = Server(fols[0].drv, role="follower")
+    for srv in (lsrv, fsrv):
+        srv.warm()
+    fols[1].drv.warm()
+    n_leader = REPL_CLIENTS - REPL_FOLLOWER_CLIENTS
+    reqs = repl_requests(rng, n_writes, n_lookups, REPL_CLIENTS,
+                         REPL_FOLLOWER_CLIENTS)
+    oracle = DenseOracle(KEY_BITS)
+    front = ReplicatedFront(leader, lsrv, fsrv, fols, oracle, n_leader,
+                            tallies)
+    fsyncs = fsync_clock()
+    with fsyncs:
+        loop = closed_loop(front, reqs, REPL_CLIENTS)
+    if front.held:
+        raise AssertionError(f"{len(front.held)} writes never acknowledged")
+    n_req = {k: sum(1 for r in reqs if r.kind == k)
+             for k in ("insert", "delete", "lookup", "range")}
+    write_keys = sum(r.keys.size for r in reqs
+                     if r.kind in ("insert", "delete"))
+    rec.update(
+        requests=n_req, write_keys=write_keys,
+        leader_lookup_keys=int(sum(r.keys.size for i, r in enumerate(reqs)
+                                   if r.kind == "lookup"
+                                   and i % REPL_CLIENTS < n_leader)),
+        closed_loop={k: loop[k] for k in ("clients", "ops", "requests",
+                                          "wall_s", "ops_per_s", "p50_us",
+                                          "p99_us", "windows",
+                                          "dispatches")},
+        acked_writes_per_s=write_keys / loop["wall_s"],
+        acked_write_requests=front.acked_writes,
+        latency_by_kind=latency_by_kind(front.lat),
+        leader_overall=lsrv.stats()["overall"],
+        leader_windows=lsrv.counters["windows"],
+        follower_windows=fsrv.counters["windows"],
+        blocking_reads_a_window=(sum(front.syncs.values())
+                                 / lsrv.counters["windows"]),
+        blocking_reads_by_site=dict(front.syncs.most_common(8)),
+        records=len(front.records),
+        follower_apply_records_per_s=(fols[1].counters["applied_records"]
+                                      / front.apply_clock.total),
+        follower_apply_ops_per_s=(sum(r[1].size for r in front.records
+                                      if r[0] <= fols[1].last_seqno)
+                                  / front.apply_clock.total),
+        lag_peak_records=front.lag_peak[0], lag_peak_bytes=front.lag_peak[1])
+    if rec["leader_lookup_keys"] < n_lookups or write_keys < n_writes:
+        raise AssertionError(f"replicated: the stream is short {n_req}")
+
+    # one leader window and one follower apply under the profiler each
+    wins = [[r for r in repl_requests(np.random.default_rng(seed + 32 + i),
+                                      4000, 1, REPL_CLIENTS, 0)][:n_leader]
+            for i in range(2)]
+
+    def leader_window():
+        for r in wins.pop(0):
+            front.submit("client-0", r.kind, r.keys, r.vals)
+        front.serve_leader()
+
+    with tallies["leader"]:
+        rec["leader_window_busy"], _ = flow_busy(leader_window)
+    front.check_leader()
+    appliers = list(fols)
+
+    def follower_apply():
+        appliers.pop(0).pump()
+
+    with tallies["followers"]:
+        rec["follower_apply_busy"], _ = flow_busy(follower_apply)
+    front.release()
+    st = leader.stats()
+    rec.update(lag_before_converge_records=st["follower_lag_records"],
+               lag_before_converge_bytes=st["follower_lag_bytes"])
+    with tallies["followers"]:
+        rounds = R.converge(leader, *fols)
+    front.release()
+    if front.held:
+        raise AssertionError("writes held after converge")
+    st = leader.stats()
+    rec.update(converge_rounds=rounds,
+               lag_after_converge_records=st["follower_lag_records"],
+               lag_after_converge_bytes=st["follower_lag_bytes"],
+               quorum_seqno=st["quorum_seqno"], last_seqno=st["last_seqno"],
+               shipped_records=st["shipped_records"],
+               shipped_bytes=st["shipped_bytes"],
+               fsyncs=fsyncs.count,
+               fsync_ms_a_sync=fsyncs.total * 1e3 / max(fsyncs.count, 1),
+               spills={"leader": eng.stats["spills"],
+                       **{f"f{i}": f.drv.stats["spills"]
+                          for i, f in enumerate(fols)}})
+    if st["follower_lag_records"] or st["quorum_seqno"] != st["last_seqno"]:
+        raise AssertionError(f"replicated: not converged {st}")
+    if min(rec["spills"].values()) < 1:
+        raise AssertionError(f"replicated: a tree never spilled "
+                             f"{rec['spills']}")
+    wal = (root / "leader" / "wal.log").read_bytes()
+    for i in range(2):
+        if (root / f"f{i}" / "wal.log").read_bytes() != wal:
+            raise AssertionError(f"follower {i}'s wal.log is not the "
+                                 "leader's")
+    rec["wal_bytes"] = len(wal)
+
+    pool = np.flatnonzero(oracle.present).astype(np.int32)
+    read_tallies = [tallies["leader"].fresh() for _ in range(3)]
+    rates = same_reads([eng, *(f.drv for f in fols)], oracle, rng, pool,
+                       n_check, n_check_scans, read_tallies)
+    tallies["leader"].add(read_tallies[0])
+    for i, (t, r) in enumerate(zip(read_tallies[1:], rates)):
+        tallies["followers"].add(t)
+        want = dict(bloom_probe=-(-n_check // LOOKUP_BATCH),
+                    range_merge=2 * (n_check_scans // SCAN_BATCH))
+        if any(t.counts[k] != n for k, n in want.items()):
+            raise AssertionError(f"follower {i}'s reads launched "
+                                 f"{t.counts}, expected {want}")
+        rec[f"f{i}_reads"] = dict(**r, launches=t.counts)
+
+    # failover: one heartbeat in cadence (both followers then hold one
+    # roster, both acks at the tip), then the leader falls silent
+    fake.advance(leader.heartbeat_s)
+    with tallies["followers"]:
+        leader.pump()
+        for f in fols:
+            f.pump()
+    if [f.succession_rank() for f in fols] != [0, 1]:
+        raise AssertionError(f"replicated: roster {fols[0].roster}")
+    fake.advance(3 * REPL_LEASE_S)
+    with tallies["followers"]:
+        fols[1].pump()
+        t0 = time.perf_counter()
+        fsrv.pump()
+        rec["promote_wall_ms"] = (time.perf_counter() - t0) * 1e3
+    new = fols[0].new_leader
+    if (new is None or fols[1].promoted
+            or [f.counters["auto_promotions"] for f in fols] != [1, 0]):
+        raise AssertionError("replicated: not exactly follower 0 promoted")
+    if fsrv.stats()["role"] != "leader":
+        raise AssertionError("the promoted follower's server is no leader")
+    # the old leader, still alive, writes on: the fence ack deposes it
+    lost = lsrv.submit("old", "insert", np.array([1, 3], np.int32),
+                       np.array([5, 7], np.int32))
+    with tallies["leader"]:
+        lsrv.pump(force=True)
+    fsrv.pump()                         # the new leader's fence ack
+    lsrv.pump()                         # epoch 1 > 0: deposed, fenced
+    if not (leader.deposed and eng.fenced
+            and isinstance(lost.error, QuorumAckError)
+            and lsrv.stats()["role"] == "follower"):
+        raise AssertionError("replicated: the old leader was not fenced")
+    try:
+        eng.insert(np.array([9], np.int32), np.array([9], np.int32))
+    except RuntimeError as e:
+        if "fenced" not in str(e):
+            raise
+    else:
+        raise AssertionError("a fenced leader took a write")
+    # the promoted leader answers as the oracle of its WAL's writes
+    prefix = DenseOracle(KEY_BITS)
+    for k, v, w in write_records(root / "f0" / "wal.log", WAL):
+        prefix.apply(k, v, w)
+    if not (np.array_equal(prefix.present, oracle.present)
+            and np.array_equal(prefix.val[prefix.present],
+                               oracle.val[oracle.present])):
+        raise AssertionError("the promoted follower's WAL prefix is not "
+                             "every acknowledged write")
+    rec["promoted_reads"] = check_reads(new.drv, prefix, rng, pool,
+                                        16 * LOOKUP_BATCH, 8 * SCAN_BATCH)
+    # re-form: follower 1 follows the new leader, the old leader's place
+    # is a fresh bootstrap
+    del lsrv, eng, leader, front
+    gc.collect()
+    torch.cuda.empty_cache()
+    link = R.QueueLink()
+    new.attach(link.leader, R.Cursor(
+        0, fols[1].last_seqno + 1, int(new.drv.durability.writer.epoch)))
+    fols[1].reattach(link.follower)
+    t0 = time.perf_counter()
+    rejoined = new.add_follower(root / "rejoined", fsync=True)
+    torch.cuda.synchronize()
+    rec["bootstrap_wall_ms"] = (time.perf_counter() - t0) * 1e3
+    rejoined.drv.durability.snapshot_every_bytes = 1 << 62
+    ks = rng.integers(0, 2 ** KEY_BITS, 3 * 800, dtype=np.int32)
+    vs = rng.integers(-2 ** 31, 2 ** 31 - 1, ks.size, dtype=np.int32)
+    new_writes = [fsrv.submit("new", "insert", ks[i:i + 800], vs[i:i + 800])
+                  for i in range(0, ks.size, 800)]
+    with tallies["followers"]:
+        fsrv.pump(force=True)
+        if any(t.done for t in new_writes):
+            raise AssertionError("a quorum write replied unheld")
+        for f in (fols[1], rejoined):
+            f.pump()
+        fsrv.pump()
+    if not all(t.done and t.error is None for t in new_writes):
+        raise AssertionError("writes at the new epoch were not acknowledged")
+    oracle.insert(ks, vs)
+    last = WAL.read_wal(root / "f0" / "wal.log")[0][-1]
+    if last.epoch != 1:
+        raise AssertionError(f"the new leader logs at epoch {last.epoch}")
+    with tallies["followers"]:
+        R.converge(new, fols[1], rejoined)
+    wal = (root / "f0" / "wal.log").read_bytes()
+    for name in ("f1", "rejoined"):
+        if (root / name / "wal.log").read_bytes() != wal:
+            raise AssertionError(f"{name}'s log is not the new leader's")
+    same_reads([new.drv, fols[1].drv, rejoined.drv], oracle, rng,
+               np.flatnonzero(oracle.present).astype(np.int32),
+               16 * LOOKUP_BATCH, 4 * SCAN_BATCH)
+    rec.update(new_epoch=last.epoch, rejoined_replayed=rejoined.drv.stats[
+        "replayed_records"], peak_memory=torch.cuda.max_memory_allocated(),
+        follower_counters=[dict(f.counters) for f in fols],
+        phase_s=time.perf_counter() - t_phase)
+    del new, rejoined, fols, fsrv
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+class FakeClock:
+    """Injected monotonic time for leases: it moves when told to."""
+
+    def __init__(self, t: float = 100.0):
+        self.t = t
+
+    def __call__(self) -> float:
+        return self.t
+
+    def advance(self, dt: float) -> None:
+        self.t += dt
+
+
+# --------------------------------------------------------------------------
+# replica kill: a leader server in a child process, SIGKILLed mid-stream
+# --------------------------------------------------------------------------
+
+def cascade_params(merge_budget: int = 0):
+    """The cascade's scaled geometry (its deepest level holds 131,072)."""
+    from repro_torch.core.params import SLSMParams
+    return SLSMParams(R=8, Rn=256, eps=1e-3, D=4, m=1.0, mu=64, max_levels=3,
+                      merge_budget=merge_budget, range_cand=512)
+
+
+def replica_windows(seed: int):
+    """The killed leader's windows: 8 requests each — writes of 1-800
+    even keys below 2 * SCALED_KEYS (a tenth deletes), lookups of 1-64
+    keys, ranges of 1-4 windows of 256 keys."""
+    from repro_torch.serve import Request
+    rng = np.random.default_rng(seed + 33)
+    keys = np.arange(0, 2 * SCALED_KEYS, 2, dtype=np.int32)
+    out = []
+    for _ in range(REPL_KILL_WINDOWS):
+        window = []
+        for _ in range(8):
+            u = rng.random()
+            if u < 0.5:
+                m = int(rng.integers(1, 801))
+                ks = rng.choice(keys, m)
+                window.append(Request("delete", ks) if rng.random() < 0.1
+                              else Request("insert", ks, rng.integers(
+                                  -2 ** 31, 2 ** 31 - 1, m, dtype=np.int32)))
+            elif u < 0.9:
+                window.append(Request("lookup", rng.choice(
+                    keys, int(rng.integers(1, 65))) | 1))
+            else:
+                lo = rng.choice(keys, int(rng.integers(1, 5)))
+                window.append(Request("range", lo, lo + 256))
+        out.append(window)
+    return out
+
+
+def replica_records(seed: int):
+    """The write records the killed leader's windows log, in order: each
+    window coalesced as its server does, one record a write chunk."""
+    from repro_torch.engine.tape import write_lanes
+    from repro_torch.serve import coalesce
+    p = cascade_params()
+    out = []
+    for window in replica_windows(seed):
+        for ch in coalesce(p, window)[0]:
+            if ch.kind == "write":
+                out.append(write_lanes(ch))
+    return out
+
+
+def replica_leader_child(directory: str, port: int, seed: int,
+                         device) -> int:
+    """The killed leader's process: a durable leader (fsync on) at the
+    cascade's geometry under `Leader(ack_mode="quorum", quorum=1)`; it
+    bootstraps `directory`/follower, dials the parent's listener on
+    `port`, and serves `replica_windows` through a `Server`, at most 8
+    windows ahead of the follower's acks; each window whose writes are
+    acknowledged prints `ack <window> <watermark>`. Runs until killed."""
+    from repro_torch.engine import SLSM
+    from repro_torch.engine import replication as R
+    from repro_torch.engine import wal as WAL
+    from repro_torch.serve import Server
+    root = Path(directory)
+    eng = SLSM(cascade_params(), device=device, durability=WAL.Durability(
+        root / "leader", fsync=True, snapshot_every_bytes=1 << 62))
+    leader = R.Leader(eng, ack_mode="quorum", quorum=1)
+    cursor = leader.bootstrap(root / "follower")
+    leader.attach(R.connect("127.0.0.1", port, timeout=120.0), cursor)
+    srv = Server(eng, role="leader")
+    held = []
+    for i, window in enumerate(replica_windows(seed)):
+        tickets = [srv.submit("child", r.kind, r.keys, r.vals)
+                   for r in window]
+        srv.pump(force=True)
+        writes = [t for t in tickets if t.kind in ("insert", "delete")]
+        if writes:
+            held.append((i, eng.durability.writer.last_seqno, writes))
+        while True:
+            srv.pump()
+            while held and all(t.done for t in held[0][2]):
+                j, wm, ts = held.pop(0)
+                if any(t.error is not None for t in ts):
+                    print(f"failed {j} {wm}", flush=True)
+                else:
+                    print(f"ack {j} {wm}", flush=True)
+            if len(held) <= 8:
+                break
+            time.sleep(1e-3)
+    return 0
+
+
+def replica_kill_phase(device, seed: int, tally):
+    """A leader `Server` in a child process (`replica_leader_child`)
+    ships over a localhost socket to a `Follower` here on the card; after
+    a seeded 200-400 applied records the child is SIGKILLed, the torn
+    remainder pumped, and the follower promoted. It must answer bitwise
+    as a fresh volatile engine fed the write records of its own WAL,
+    which must be a prefix of the child's stream holding every window the
+    child printed as acknowledged (zero RPO under quorum 1), and take
+    writes at epoch 1. `tally` counts the follower's launches."""
+    import queue
+    import shutil
+    import signal
+    import threading
+
+    import torch
+    from repro_torch.engine import SLSM
+    from repro_torch.engine import replication as R
+    from repro_torch.engine import wal as WAL
+    from repro_torch.engine.tape import TapeChunk
+
+    t_phase = time.perf_counter()
+    root = ROOT / "build" / "replica_kill"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    kill_after = int(np.random.default_rng(seed + 34).integers(
+        *REPL_KILL_AFTER))
+    lis = R.SocketListener()
+    cmd = [sys.executable, str(ROOT / "chip_smoke.py"), "--seed", str(seed),
+           "--replica-leader", str(root), "--replica-port", str(lis.port),
+           "--writer-device", str(device)]
+    child = subprocess.Popen(cmd, stdout=subprocess.PIPE, text=True)
+    lines: queue.Queue = queue.Queue()
+    reader = threading.Thread(target=lambda: [lines.put(x)
+                                              for x in child.stdout],
+                              daemon=True)
+    reader.start()
+    try:
+        end = lis.accept(timeout=180.0)
+        lis.close()
+        fol = R.Follower(root / "follower", end, device=device, fsync=True)
+        deadline = time.monotonic() + 300
+        with tally:
+            while fol.counters["applied_records"] < kill_after:
+                fol.pump()
+                if child.poll() is not None:
+                    raise AssertionError(f"the leader child exited "
+                                         f"{child.returncode}")
+                if time.monotonic() > deadline:
+                    raise AssertionError("the follower applied "
+                                         f"{fol.counters['applied_records']}"
+                                         " records in 300 s")
+            child.send_signal(signal.SIGKILL)
+            child.wait(timeout=60)
+            at_kill = fol.counters["applied_records"]
+            for _ in range(4):          # the torn remainder
+                fol.pump()
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait(timeout=60)
+        reader.join(timeout=60)
+        child.stdout.close()
+    if child.returncode != -signal.SIGKILL:
+        raise AssertionError(f"the leader child exited {child.returncode}")
+    acks, failed = [], []
+    while not lines.empty():
+        word, *nums = lines.get().split()
+        (acks if word == "ack" else failed).append(tuple(map(int, nums)))
+    t0 = time.perf_counter()
+    with tally:
+        prom = fol.promote()
+    rec = dict(kill_after=kill_after, applied_at_kill=at_kill,
+               applied=fol.counters["applied_records"],
+               follower=fol.stats(), acked_windows=len(acks),
+               failed_windows=len(failed), last_seqno=fol.last_seqno,
+               promote_wall_ms=(time.perf_counter() - t0) * 1e3)
+    if not acks or failed:
+        raise AssertionError(f"replica kill: {len(acks)} windows "
+                             f"acknowledged, {len(failed)} failed")
+    if max(wm for _, wm in acks) > fol.last_seqno:
+        raise AssertionError(f"an acknowledged window (watermark "
+                             f"{max(wm for _, wm in acks)}) is not in the "
+                             f"promoted log (last seqno {fol.last_seqno})")
+    got = write_records(root / "follower" / "wal.log", WAL)
+    want = replica_records(seed)
+    for j, (g, w) in enumerate(zip(got, want)):
+        if not all(np.array_equal(a, b) for a, b in zip(g, w)):
+            raise AssertionError(f"replica kill: write record {j} is not "
+                                 "the child's stream")
+    fresh = SLSM(cascade_params(), device=device)
+    oracle = DenseOracle(KEY_BITS)
+    for i in range(0, len(got), 64):
+        fresh.run_tape([TapeChunk("write", *g) for g in got[i:i + 64]])
+    for g in got:
+        oracle.apply(*g)
+    qs = np.arange(-8, 2 * SCALED_KEYS + 8, dtype=np.int32)
+    lo = np.arange(0, 2 * SCALED_KEYS, 2 * SCALED_KEYS // 64, dtype=np.int32)
+    wins = np.stack([lo, lo + 256], 1)
+
+    def reads(e):
+        return ([e.lookup_many(qs[i:i + LOOKUP_BATCH])
+                 for i in range(0, qs.size, LOOKUP_BATCH)]
+                + [e.range_many(wins), e.aggregate_many(wins)])
+
+    with tally:
+        answers = [reads(prom)]
+    answers.append(reads(fresh))
+    for j, (g, w) in enumerate(zip(*answers)):
+        if not all(np.array_equal(a, b) for a, b in zip(g, w)):
+            raise AssertionError(f"replica kill: read {j} of the promoted "
+                                 "follower differs from the fresh engine's")
+    for i, (v, f) in enumerate(answers[0][:-2]):
+        oracle.check_lookups(qs[i * LOOKUP_BATCH:(i + 1) * LOOKUP_BATCH], v,
+                             f, "replica kill")
+    check_scans(oracle, wins, *answers[0][-2])
+    ks = np.array([1, 3, 5], np.int32)
+    prom.insert(ks, ks * 7)
+    v, f = prom.lookup_many(ks)
+    last = WAL.read_wal(root / "follower" / "wal.log")[0][-1]
+    if not (f.all() and (v == ks * 7).all() and last.epoch == 1):
+        raise AssertionError("the promoted follower does not take writes "
+                             "at epoch 1")
+    rec.update(write_records=len(got), stream_records=len(want),
+               new_epoch=last.epoch, live_keys=int(oracle.present.sum()),
+               phase_s=time.perf_counter() - t_phase)
+    del prom, fresh, fol
+    torch.cuda.empty_cache()
+    return rec
+
+
+# --------------------------------------------------------------------------
 # LM phases: decode over the sLSM-tiered KV cache, Phi-4-mini at full width
 # --------------------------------------------------------------------------
 
@@ -3028,11 +3852,18 @@ def main() -> int:
                     help=argparse.SUPPRESS)   # the killed writer's child
     ap.add_argument("--writer-device", default="cuda",
                     help=argparse.SUPPRESS)
+    ap.add_argument("--replica-leader", metavar="DIR",
+                    help=argparse.SUPPRESS)   # the replica kill's child
+    ap.add_argument("--replica-port", type=int, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.durable_writer:
         sys.path.insert(0, str(ROOT / "src"))
         return writer_child(args.durable_writer, args.seed,
                             args.writer_device)
+    if args.replica_leader:
+        sys.path.insert(0, str(ROOT / "src"))
+        return replica_leader_child(args.replica_leader, args.replica_port,
+                                    args.seed, args.writer_device)
 
     import torch
     if not torch.cuda.is_available():
@@ -3142,7 +3973,8 @@ def main() -> int:
     # from 0 just before its own calls and read just after them
     tallies = {path: LaunchTally(counters, contract)
                for path in ("adaptive", "tape", "tape scaled", "durable",
-                            "sharded")}
+                            "sharded", "replicated leader",
+                            "replicated followers", "replica kill")}
     eng, oracle, adaptive, pool = adaptive_phase(
         device, args.seed, ADAPTIVE_N, tallies["adaptive"])
     log(f"adaptive [{card}]: " + json.dumps(adaptive))
@@ -3171,6 +4003,13 @@ def main() -> int:
         rec["cases"].append(sharded_cases[rec["name"]])
     cascade = sharded_cascade_phase(device, args.seed)
     log(f"sharded cascade [{card}]: " + json.dumps(cascade))
+    torch.cuda.empty_cache()
+    replicated = replicated_phase(device, args.seed, {
+        "leader": tallies["replicated leader"],
+        "followers": tallies["replicated followers"]})
+    log(f"replicated [{card}]: " + json.dumps(replicated))
+    killed = replica_kill_phase(device, args.seed, tallies["replica kill"])
+    log(f"replica kill [{card}]: " + json.dumps(killed))
     by_path = {"main": launches}
     for path, tally in tallies.items():
         by_path[path] = tally.counts

@@ -15,6 +15,10 @@ Layer map:
   sharded.py    — S hash-partitioned trees in one stacked state
   wal.py        — durability: the CRC-framed, sequence-numbered WAL, atomic
                   snapshots and the `Durability` manager (restore())
+  replication.py— single-leader replication over the WAL, on the
+                  reference's wire: `Leader` ships durable frames verbatim,
+                  `Follower` replays them on its own engine and acks;
+                  leases, epoch fencing, quorum acks, pruning
   engine.py     — the host-side `SLSM` engine
 """
 from repro_torch.engine.batching import pad_pow2  # noqa: F401
@@ -33,3 +37,6 @@ from repro_torch.engine.wal import (Durability, SnapshotError,  # noqa: F401
                                     list_snapshots, load_latest_snapshot,
                                     read_snapshot, read_wal, record_offsets,
                                     write_snapshot)
+from repro_torch.engine.replication import (Follower, Leader,  # noqa: F401,E402
+                                           QueueLink, SocketListener,
+                                           converge)

@@ -111,7 +111,10 @@ class SLSM:
         self.durability = WAL.as_durability(durability)
         if self.durability is not None:
             self.durability.ensure_header(self._wal_meta())
-        # a deposed leader's writes raise until promote()
+        # a replication Leader / Follower claims this (the serving layer
+        # pumps it between windows); a deposed leader's writes raise
+        # until promote()
+        self.replication = None
         self.fenced = False
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:

@@ -990,3 +990,77 @@ def test_sharded_launch_counts_of_a_lookup_batch_and_a_masked_spill(cuda):
     r0 = KRM.range_merge.launches
     card.range_many([(0, 100), (50, 300)])
     assert KRM.range_merge.launches == r0 + 1
+
+
+def _repl_run(base, device, sharded=False):
+    """One replicated stream at the reference harness's tiny geometry:
+    a quorum leader on `device`, one follower from `add_follower` (on the
+    leader's device), writes and a `Server` window, then `converge`.
+    Returns the follower's `wal.log`, the window's ticket results and
+    the leader's and follower's answers."""
+    from repro_torch.core.params import SLSMParams
+    from repro_torch.engine import SLSM, ShardedSLSM
+    from repro_torch.engine import replication as R
+    from repro_torch.engine import wal as WAL
+    from repro_torch.serve import Server
+    p = SLSMParams(R=2, Rn=32, eps=1e-2, D=2, m=1.0, mu=16, max_levels=3,
+                   max_range=2048, merge_budget=1)
+    dur = WAL.Durability(base / "leader", fsync=False,
+                         snapshot_every_bytes=1 << 30)
+    drv = (ShardedSLSM(p, 2, device=device, durability=dur) if sharded
+           else SLSM(p, device=device, durability=dur))
+    leader = R.Leader(drv, ack_mode="quorum", quorum=1,
+                      clock=lambda: 100.0)
+    rng = np.random.default_rng(23)
+    ops = []
+    for i in range(10):
+        ks = rng.integers(0, 4000, 48).astype(np.int32)
+        ops.append(("delete", ks[:16], None) if i % 4 == 3
+                   else ("insert", ks, rng.integers(0, 1 << 20, 48)
+                         .astype(np.int32)))
+    for kind, ks, vs in ops[:4]:
+        drv.insert(ks, vs) if kind == "insert" else drv.delete(ks)
+    fol = leader.add_follower(base / "fol")
+    assert fol.drv.device.type == torch.device(device).type
+    srv = Server(drv, role="leader")
+    tickets = [srv.submit("c", kind, ks, vs) for kind, ks, vs in ops[4:]]
+    probe = np.arange(0, 4000, 7, dtype=np.int32)
+    tickets.append(srv.submit("c", "lookup", probe))
+    tickets.append(srv.submit("c", "range", np.int32([0, 900]),
+                              np.int32([500, 3000])))
+    srv.pump(force=True)
+    fol.pump()
+    srv.pump()
+    assert all(t.done and t.error is None for t in tickets)
+    R.converge(leader, fol)
+    wins = [(0, 4000), (123, 456), (1000, 3500)]
+    answers = [(e.lookup_many(probe), e.range_many(wins),
+                e.aggregate_many(wins)) for e in (drv, fol.drv)]
+    return ((base / "fol" / "wal.log").read_bytes(),
+            [t.result for t in tickets], answers,
+            (base / "leader" / "wal.log").read_bytes())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sharded", [False, True], ids=["single", "sharded"])
+def test_replication_and_server_on_card_match_cpu(cuda, tmp_path, sharded):
+    """A quorum leader and its follower on the card, fed writes and a
+    `Server` window, converge: the follower's WAL is the leader's and
+    byte for byte the follower WAL of the same stream on the CPU; the
+    window's results and every answer of leader and follower equal the
+    CPU run's."""
+    wal, results, answers, leader_wal = _repl_run(tmp_path / "card", cuda,
+                                                  sharded)
+    cpu_wal, cpu_results, cpu_answers, _ = _repl_run(tmp_path / "cpu", "cpu",
+                                                     sharded)
+    assert wal == leader_wal == cpu_wal
+    for got, want in zip(results, cpu_results):
+        if want is None:
+            assert got is None
+        else:
+            for a, b in zip(got, want):
+                np.testing.assert_array_equal(a, b)
+    for side in (answers[0], answers[1]):
+        for got, want in zip(side, cpu_answers[0]):
+            for a, b in zip(got, want):
+                np.testing.assert_array_equal(a, b)
