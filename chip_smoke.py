@@ -187,6 +187,26 @@ Phases, in order; any failure raises and exits non-zero:
              2e-2 in the logits at every step, and layer 0's attention
              outputs to the kernel tolerance; with the top selected block
              masked out, layer 0 must fail that tolerance.
+  moe_kernel — the attention kernel against its plain version at the two
+             moe decode shapes (head dim 64): Granite-MoE-1B-A400M (16
+             heads, kv 8: a query group of 2, one pass) and Qwen3-30B-A3B
+             (32 heads, kv 4: a group of 8, two passes of 4), the tiered
+             bf16 case of lsm_kernel with its planted faults, tolerance,
+             timings and bound; the records join lsm_attention's cases.
+  moe_serve — Granite-MoE-1B-A400M at full width and depth (bf16, seeded
+             random weights), as lm_serve: 2 x 24,576-token prompts, 32
+             new tokens, exactly 24 x 31 = 744 kernel launches, all in
+             place on the tiered cache, 23 cold blocks, 1,055 hot
+             tokens, finite logits, tokens in range; decode ms a step,
+             tokens/s, prefill s, peak memory, a decode window's
+             device-busy share.
+  moe_agree — Qwen3-30B-A3B at full width and depth (bf16, seeded random
+             weights, ~30.1 B parameters), as lm_agree: 2 x 8,192-token
+             prompts, tiered vs dense logits rel L2 <= 2e-2, layer 0 at
+             the kernel tolerance, the masked-block control; then a
+             profiled decode window on the tiered cache; peak memory.
+             The kernel's launches are counted by path (lm_serve,
+             lm_agree, moe_serve, moe_agree).
 
 The last two lines of standard output are the kernels' JSON record and
 the device record; nothing of JAX or of the reference package is used.
@@ -194,6 +214,7 @@ the device record; nothing of JAX or of the reference package is used.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -213,9 +234,12 @@ SCAN_BATCH = 32
 KEY_BITS = 24
 F32_FLOPS = 67e12               # H100 SXM float32 outside the tensor cores
 LM_ARCH = "phi4-mini-3.8b"
+MOE_SERVE_ARCH = "granite-moe-1b-a400m"  # full width and depth
+MOE_AGREE_ARCH = "qwen3-moe-30b-a3b"     # full width and depth, ~60.1 GB
 SERVE_PROMPT, SERVE_STEPS = 24_576, 32   # 23 cold blocks + 1,024 hot
 SERVE_HOT = 1_056               # hot tokens a serve step attends at first
 AGREE_PROMPT, AGREE_STEPS = 8_192, 8     # 7 cold blocks <= topk 16
+OWN_ROUTING_X = 3               # moe own-routing rel L2 / the dense floor's
 FENCE_DEEP_RUNS = 4             # runs of level_cap(2) in the deep fence case
 RANGE_WIDE = 16_384             # scan rows wider than one merge tile
 ADAPTIVE_EPS = (2 ** -6, 1e-3, 2 ** -13)   # k = 6, 10, 13 by level
@@ -3430,6 +3454,10 @@ def tiered_case(device, gen, dt, w, mu, topk, kv, dh, b, h):
     return (q, hk, hv, hot_len, bk, bv, ids, ok), n_valid
 
 
+LSM_CASES = (("tiered", "bfloat16"), ("dense", "bfloat16"),
+             ("bitmap", "bfloat16"), ("tiered", "float32"))
+
+
 def lsm_kernel_phase(device, seed: int):
     """The attention kernel against its plain version at the LM path's
     shapes — the tiered cache read in place (bf16, and once in f32), the
@@ -3439,18 +3467,43 @@ def lsm_kernel_phase(device, seed: int):
     `F.scaled_dot_product_attention` on the (gathered) K/V and, for the
     tiered cases, the path it replaces (gather, concatenate, bitmap,
     kernel)."""
+    cases = lsm_kernel_cases(device, seed, lm_config(), LSM_CASES)
+    main = dict(cases[0])
+    main.update(name="lsm_attention", route="cuda",
+                source="src/repro_torch/csrc/lsm_attention.cu",
+                replaces="src/repro/kernels/lsm_attention/lsm_attention.py:36",
+                cases=cases[1:])
+    return main
+
+
+def moe_kernel_phase(device, seed: int) -> list:
+    """`moe_kernel`: the attention kernel at the two moe decode shapes
+    (head dim 64; Granite's query group of 2 in one pass, Qwen3's group
+    of 8 in two passes of 4 heads), the tiered bf16 case of
+    `lsm_kernel_phase` with its planted faults and tolerance."""
+    from repro_torch.configs import get_config
+    recs = []
+    for arch in (MOE_SERVE_ARCH, MOE_AGREE_ARCH):
+        for rec in lsm_kernel_cases(device, seed, get_config(arch),
+                                    (("tiered", "bfloat16"),)):
+            rec["case"] = f"moe {arch}: {rec['case']}"
+            recs.append(rec)
+    return recs
+
+
+def lsm_kernel_cases(device, seed: int, cfg, which) -> list:
+    """One record a (case, dtype) of `which` at `cfg`'s decode shapes
+    (batch 2); see `lsm_kernel_phase`."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.lsm_attention import ops as KLA
 
-    cfg = lm_config()
     b, h, kv, dh = 2, cfg.n_heads, cfg.n_kv, cfg.hd
     w, mu, topk = cfg.lsm_hot_window, cfg.lsm_block, cfg.lsm_topk
     gen = torch.Generator(device).manual_seed(seed + 5)
     scale = dh ** -0.5
     cases = []
-    for name, dtype in (("tiered", "bfloat16"), ("dense", "bfloat16"),
-                        ("bitmap", "bfloat16"), ("tiered", "float32")):
+    for name, dtype in which:
         dt = getattr(torch, dtype)
         faults = {}
         if name == "dense":
@@ -3567,23 +3620,19 @@ def lsm_kernel_phase(device, seed: int):
         if name != "dense":
             del args
         torch.cuda.empty_cache()
-    main = dict(cases[0])
-    main.update(name="lsm_attention", route="cuda",
-                source="src/repro_torch/csrc/lsm_attention.cu",
-                replaces="src/repro/kernels/lsm_attention/lsm_attention.py:36",
-                cases=cases[1:])
-    return main
+    return cases
 
 
-def lm_serve_phase(device, seed: int, counters: dict):
-    """`generate(kind="lsm")` at full width: 2 requests x 24,576-token
-    prompts, 32 new tokens."""
+def lm_serve_phase(device, seed: int, counters: dict, cfg=None):
+    """`generate(kind="lsm")` at full width (Phi-4-mini unless `cfg` is
+    given): 2 requests x 24,576-token prompts, 32 new tokens. The
+    counters are set to 0 just before `generate` and read just after."""
     import torch
     from repro_torch.kernels.lsm_attention import ops as KLA
     from repro_torch.models import lm
     from repro_torch.serving import generate
 
-    cfg = lm_config()
+    cfg = cfg or lm_config()
     t0 = time.perf_counter()
     model = lm.init_params(cfg, seed, device)
     torch.cuda.synchronize()
@@ -3608,17 +3657,18 @@ def lm_serve_phase(device, seed: int, counters: dict):
                              f"cache; expected {want} of each (one per "
                              f"layer per step)")
     if not stats["finite"]:
-        raise AssertionError("lm_serve: a logit was not finite")
+        raise AssertionError(f"{cfg.name} serve: a logit was not finite")
     n_blk = caches["n_blocks"].unique().tolist()
     hot = caches["hot_len"].unique().tolist()
     want_blk = (SERVE_PROMPT - 1) // cfg.lsm_block
     want_hot = SERVE_PROMPT - want_blk * cfg.lsm_block + n_steps
     if n_blk != [want_blk] or hot != [want_hot]:
-        raise AssertionError(f"lm_serve: n_blocks {n_blk} hot_len {hot}, "
-                             f"expected {want_blk} and {want_hot}")
+        raise AssertionError(f"{cfg.name} serve: n_blocks {n_blk} hot_len "
+                             f"{hot}, expected {want_blk} and {want_hot}")
     if toks.shape != (2, SERVE_STEPS) or not (
             (toks >= 0) & (toks < cfg.vocab)).all():
-        raise AssertionError(f"lm_serve: bad tokens {tuple(toks.shape)}")
+        raise AssertionError(f"{cfg.name} serve: bad tokens "
+                             f"{tuple(toks.shape)}")
     rec = dict(
         arch=cfg.name, dtype=cfg.dtype, batch=2, prompt=SERVE_PROMPT,
         new_tokens=SERVE_STEPS, init_s=init_s, prefill_s=stats["prefill_s"],
@@ -3731,17 +3781,87 @@ def lm_seal_phase(cfg, model, caches, seed: int):
                 + int(ok.sum()) * mu)
 
 
+class expert_picks:
+    """Each moe layer's choice of experts, in call order. Under
+    `record()` the router's picks are kept; under `replay()` the next
+    router calls, in the same order, take the kept picks: each still
+    computes its own probabilities and weights the experts by them, only
+    which experts run is the recorded choice."""
+
+    def __init__(self):
+        self.picks = []
+
+    @contextlib.contextmanager
+    def _patched(self, replay: bool):
+        from repro_torch.models import moe as MOE
+        real = MOE._route
+        kept = iter(list(self.picks))
+        if not replay:
+            self.picks = []
+
+        def route(cfg, p, xt):
+            probs, top_p, top_e = real(cfg, p, xt)
+            if replay:
+                top_e = next(kept, None)
+                if top_e is None:
+                    raise AssertionError("expert_picks: more router calls "
+                                         "than recorded")
+                return probs, probs.gather(-1, top_e), top_e
+            self.picks.append(top_e)
+            return probs, top_p, top_e
+
+        MOE._route = route
+        try:
+            yield self
+        finally:
+            MOE._route = real
+        if replay and next(kept, None) is not None:
+            raise AssertionError("expert_picks: fewer router calls than "
+                                 "recorded")
+
+    def record(self):
+        return self._patched(False)
+
+    def replay(self):
+        return self._patched(True)
+
+    def differ(self, other) -> int:
+        """(layer, token) pairs whose expert sets differ from other's."""
+        return sum(int((a.sort(-1).values != b.sort(-1).values).any(-1)
+                       .sum()) for a, b in zip(self.picks, other.picks))
+
+
 def lm_agree_phase(cfg, model, seed: int):
     """2 x 8,192-token prompts: n_blocks = 7 <= topk, so every cold block
     is selected and the tiered decode must equal the dense one. 8 steps,
-    teacher-forced by the dense tokens, both through the kernel.
+    teacher-forced by the dense tokens, both through the kernel; the
+    kernel's launches of those steps (not the control's) are returned
+    as `launches`.
 
     Through 32 bf16 layers any change of summation order moves the
     logits by nearly as much as the 2e-2 limit allows, so the sharp
     check is layer 0: its input (the token's embedding) and its K/V are
     the same in both layouts, and its kernel outputs must agree to the
     kernel tolerance. A control step with the top-scoring selected block
-    masked out in every layer must fail that check."""
+    masked out in every layer must fail that check.
+
+    A moe model's router picks its top k experts, a choice that one
+    bf16 ulp of difference in a layer's input can flip between two
+    near-equal experts, and each flip moves that token's hidden state
+    by a step, not by an ulp's drift. So for a moe model the tiered step
+    (and the control, and the noise floor's step) runs the experts the
+    dense step's router picked, layer by layer (`expert_picks`): the
+    2e-2 limit then holds the two cache layouts and kernel calls against
+    each other, not the flips they share. The tiered step with its own
+    routing runs too, on the same cache before the forced one, beside
+    an own-routing floor: the dense step with the plain version's
+    attention and its own routing, whose flips come from summation
+    order alone. The own-routing tiered rel L2 must stay within
+    OWN_ROUTING_X times the largest floor over the steps (or 2e-2, if
+    that is more), so a fault that acts through the routing still fails;
+    the number of (layer, token) expert sets that differ is recorded. A
+    moe record adds `decode_window` of the tiered cache after the last
+    step."""
     import torch
     from repro_torch.kernels.lsm_attention import ops as KLA
     from repro_torch.models import lm
@@ -3796,19 +3916,36 @@ def lm_agree_phase(cfg, model, seed: int):
         return float((a - b).norm() / b.norm())
 
     tok = logits.argmax(-1)
-    errs, floor_errs, l0_errs, ctl = [], [], [], []
+    errs, floor_errs, l0_errs, ctl, own, own_floor = [], [], [], [], [], []
+    launches = 0
+    picks = expert_picks()
+    moe = cfg.family == "moe"
+
+    def forced(what):
+        return getattr(picks, what)() if moe else contextlib.nullcontext()
+
     for _ in range(AGREE_STEPS):
         n0 = kernel.launches
-        ld, dense, d0 = step(dense, "dense")
+        with forced("record"):
+            ld, dense, d0 = step(dense, "dense")
         n1 = kernel.launches
-        # the control first, on the same cache: it writes only the hot
-        # slot that the real step then overwrites, and its counters are
-        # dropped
-        lc, _, c0 = step(tiered, "lsm", drop_block=True)
+        # the control and the tiered step with its own routing first, on
+        # the same cache: each writes only the hot slot that the real
+        # step then overwrites, and their counters are dropped
+        with forced("replay"):
+            lc, _, c0 = step(tiered, "lsm", drop_block=True)
+        if moe:
+            free = expert_picks()
+            with free.record():
+                lo, _, _ = step(tiered, "lsm")
+            own.append(dict(rel_l2=rel_l2(lo, ld),
+                            experts_differ=free.differ(picks)))
         n2 = kernel.launches
-        lt, tiered, t0 = step(tiered, "lsm")
+        with forced("replay"):
+            lt, tiered, t0 = step(tiered, "lsm")
         if (n1 - n0, kernel.launches - n2) != (cfg.n_layers, cfg.n_layers):
             raise AssertionError("lm_agree: a decode path skipped the kernel")
+        launches += n1 - n0 + kernel.launches - n2
         if not bool(torch.isfinite(ld).all() & torch.isfinite(lt).all()):
             raise AssertionError("lm_agree: a logit is not finite")
         errs.append(rel_l2(lt, ld))
@@ -3820,18 +3957,73 @@ def lm_agree_phase(cfg, model, seed: int):
             (c0.float() - d0.float()).abs().max()), rel_l2=rel_l2(lc, ld)))
         # the noise floor: the same dense step with the plain version's
         # f32 arithmetic in place of the kernel (same positions, another
-        # summation order, bf16 rounding through 32 layers)
-        lp, floor, _ = step(floor, "dense", plain=True)
+        # summation order, bf16 rounding through all layers); for moe,
+        # first with its own routing on the slot the forced step rewrites
+        if moe:
+            lf, _, _ = step(floor, "dense", plain=True)
+            own_floor.append(rel_l2(lf, ld))
+        with forced("replay"):
+            lp, floor, _ = step(floor, "dense", plain=True)
         floor_errs.append(rel_l2(lp, ld))
         tok = ld.argmax(-1)
+    window = decode_window(cfg, model, tiered, tok) if moe else {}
     if max(errs) > 2e-2:
-        raise AssertionError(f"lm_agree: tiered vs dense rel L2 {errs}")
-    return dict(prompt=AGREE_PROMPT, steps=AGREE_STEPS, n_blocks=n_blk,
+        raise AssertionError(f"{cfg.name} agree: tiered vs dense rel L2 "
+                             f"{errs}")
+    own_limit = max(2e-2, OWN_ROUTING_X * max(own_floor, default=0.0))
+    if moe and max(o["rel_l2"] for o in own) > own_limit:
+        raise AssertionError(f"{cfg.name} agree: own-routing tiered vs "
+                             f"dense rel L2 {own} over {own_limit} "
+                             f"(floor {own_floor})")
+    return dict(arch=cfg.name, prompt=AGREE_PROMPT, steps=AGREE_STEPS,
+                n_blocks=n_blk, launches=launches,
                 max_rel_l2=max(errs), rel_l2=errs,
                 plain_vs_kernel_dense_rel_l2=floor_errs,
                 layer0_max_abs_err=l0_errs,
                 layer0_mean_abs_out=float(d0.float().abs().mean()),
-                block_masked_control=ctl)
+                block_masked_control=ctl, **window,
+                **(dict(forced_routing=True, own_routing=own,
+                        own_routing_floor=own_floor,
+                        own_routing_limit=own_limit) if moe else {}))
+
+
+def moe_serve_phase(device, seed: int, counters: dict) -> dict:
+    """`moe_serve`: `lm_serve_phase` for Granite-MoE-1B-A400M at full
+    width and depth (24 layers: 24 x 31 = 744 in-place launches)."""
+    from repro_torch.configs import get_config
+    t0 = time.perf_counter()
+    model, caches, rec = lm_serve_phase(device, seed, counters,
+                                        get_config(MOE_SERVE_ARCH))
+    del model, caches
+    rec["phase_s"] = time.perf_counter() - t0
+    return rec
+
+
+def moe_agree_phase(device, seed: int):
+    """`moe_agree`: Qwen3-30B-A3B at full width and depth (~30.1 B
+    parameters in bf16), tiered against dense decode by `lm_agree_phase`
+    with the dense step's expert choices replayed (see there), then a
+    profiled decode window; peak memory from before the weights are
+    made."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+
+    cfg = get_config(MOE_AGREE_ARCH)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = lm.init_params(cfg, seed, device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    params = list(model.parameters())
+    rec = lm_agree_phase(cfg, model, seed)
+    rec.update(init_s=init_s, parameters=sum(p.numel() for p in params),
+               weight_bytes=sum(p.numel() * p.element_size()
+                                for p in params),
+               max_memory_allocated=torch.cuda.max_memory_allocated(),
+               phase_s=time.perf_counter() - t0)
+    del model, params
+    return rec
 
 
 # --------------------------------------------------------------------------
@@ -4031,13 +4223,28 @@ def main() -> int:
     agree = lm_agree_phase(lm_config(), model, args.seed)
     log(f"lm_agree [{card}]: " + json.dumps(agree))
     del model
+    torch.cuda.empty_cache()
+
+    moe_cases = moe_kernel_phase(device, args.seed)
+    moe_serve = moe_serve_phase(device, args.seed, counters)
+    log(f"moe_serve [{card}]: " + json.dumps(moe_serve))
+    torch.cuda.empty_cache()
+    moe_agree = moe_agree_phase(device, args.seed)
+    log(f"moe_agree [{card}]: " + json.dumps(moe_agree))
+    torch.cuda.empty_cache()
 
     for rec in kernels:
         rec["launches"] = launches[rec["name"]]
         rec["launches_by_path"] = {k: v[rec["name"]]
                                    for k, v in by_path.items()}
         rec["card"] = card
-    lsm_rec.update(launches=serve["launches"]["lsm_attention"], card=card)
+    lsm_rec["cases"].extend(moe_cases)
+    lsm_rec.update(launches=serve["launches"]["lsm_attention"],
+                   launches_by_path={
+                       "lm_serve": serve["launches"]["lsm_attention"],
+                       "lm_agree": agree["launches"],
+                       "moe_serve": moe_serve["launches"]["lsm_attention"],
+                       "moe_agree": moe_agree["launches"]}, card=card)
     kernels.append(lsm_rec)
     print(json.dumps({"kernels": kernels}))
     print(device_line)

@@ -109,7 +109,10 @@ def state_to_leaves(state: SLSMState) -> list[np.ndarray]:
 # d_out) for `x @ W`. The port's `LM` keeps one module per layer and
 # `nn.Linear` weights (d_out, d_in), so every projection is transposed
 # on the way in and out. Norm weights are `w`, q/k/v biases `bq`/`bk`/
-# `bv` in the reference and the Linear's `bias` here.
+# `bv` in the reference and the Linear's `bias` here. A moe block's
+# `router`, `w_gate`, `w_up` and `w_down` are plain parameters in the
+# reference's layout (`layers.<i>.moe.w_up` is `layers/moe/w_up[i]`),
+# stacked on L and not transposed.
 
 def _from_numpy(a, dtype=None, device="cpu") -> torch.Tensor:
     a = np.array(a)           # a copy: the port writes caches in place

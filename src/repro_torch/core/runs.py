@@ -13,8 +13,15 @@ Trap T2 (two-key sort): the reference's ``lax.sort(num_keys=2)`` becomes
 one stable sort of the int64 ``(key << 32) | seq``. Seqs are
 non-negative int32, so the low word orders exactly as seq does.
 Trap T3 (int32 reductions): counts come back as int32.
+
+`merge_two_ranked` and `merge_kway_ranked` are the reference's
+rank-merge (its HeapMerge step without a heap), kept for the tests and
+benchmarks that hold the merge paths against each other; the engine
+merges through `merge_runs` and the heap_merge kernel.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -87,6 +94,62 @@ def merge_runs(keys2d, vals2d, wts2d, seqs2d, drop_annihilated: bool):
     seqs = torch.where(ok, s[part], 0)
     vals = torch.where(ok, vals2d.reshape(-1)[order[part]], 0)
     return keys, vals, wts, seqs, valid.sum().to(torch.int32)
+
+
+def _rank_in(other_k, other_s, qk, qs) -> torch.Tensor:
+    """Lower bound of each (qk, qs) in the (key, seq)-sorted run
+    (other_k, other_s): the reference's fixed-step binary search, step
+    for step, so it ranks as the reference does even in a run that an
+    earlier rank-merge left with a gap (see `merge_two_ranked`)."""
+    size = other_k.shape[0]
+    lo = torch.zeros(qk.shape, dtype=torch.int64, device=qk.device)
+    hi = torch.full(qk.shape, size, dtype=torch.int64, device=qk.device)
+    for _ in range(max(1, math.ceil(math.log2(size + 1)))):
+        mid = (lo + hi) // 2
+        midc = mid.clamp(0, size - 1)
+        ok_, os_mid = other_k[midc], other_s[midc]
+        before = (ok_ < qk) | ((ok_ == qk) & (os_mid < qs))
+        active = lo < hi
+        lo, hi = (torch.where(active & before, mid + 1, lo),
+                  torch.where(active & ~before, mid, hi))
+    return lo
+
+
+def merge_two_ranked(ak, av, aw, as_, bk, bv, bw, bs):
+    """Rank-merge of two (key, seq)-sorted runs: a[i] goes to slot
+    i + #{b < a[i]}, b[j] to j + #{a < b[j]}, by (key, seq).
+
+    Where a and b hold equal (key, seq) pairs (padding lanes, for
+    example) both rank to one slot: as in the reference, a is written
+    first and b second, so b's lanes win, and the slot that no element
+    reaches keeps KEY_EMPTY and zeros. Returns (keys, vals, wts, seqs)."""
+    n, m = ak.shape[0], bk.shape[0]
+    pa = torch.arange(n, device=ak.device) + _rank_in(bk, bs, ak, as_)
+    pb = torch.arange(m, device=ak.device) + _rank_in(ak, as_, bk, bs)
+    out = []
+    for a, b, fill in ((ak, bk, _KEY_EMPTY), (av, bv, 0), (aw, bw, 0),
+                       (as_, bs, 0)):
+        o = a.new_full((n + m,), fill)
+        o[pa] = a                       # two scatters: b overwrites a
+        o[pb] = b
+        out.append(o)
+    return tuple(out)
+
+
+def merge_kway_ranked(keys2d, vals2d, wts2d, seqs2d, drop_annihilated: bool):
+    """Tournament of rank-merges over k sorted runs (k, cap): log2(k)
+    rounds of `merge_two_ranked`, then survivor dedup and compaction.
+    Returns (keys, vals, wts, seqs, count)."""
+    runs = [(keys2d[i], vals2d[i], wts2d[i], seqs2d[i])
+            for i in range(keys2d.shape[0])]
+    while len(runs) > 1:
+        nxt = [merge_two_ranked(*runs[i], *runs[i + 1])
+               for i in range(0, len(runs) - 1, 2)]
+        if len(runs) % 2:
+            nxt.append(runs[-1])
+        runs = nxt
+    k, v, w, s = runs[0]
+    return compact(k, v, w, s, survivor_mask(k, w, drop_annihilated))
 
 
 def build_fences(keys: torch.Tensor, mu: int, n_fences: int) -> torch.Tensor:

@@ -1,8 +1,9 @@
 """Model configuration: the port's copy of `repro.models.config`.
 
 The fields and `smoke()` are the reference's, so a configuration means
-the same model in both packages. The port runs the `dense` family; the
-other families' fields are kept so that configurations stay one type.
+the same model in both packages. The port runs the `dense` and `moe`
+families; the other families' fields are kept so that configurations
+stay one type.
 """
 from __future__ import annotations
 
@@ -91,12 +92,12 @@ class ModelConfig:
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for a configuration this port does not run yet: every
-    family but `dense`, M-RoPE and LayerNorm (they come with the slices
-    of ROADMAP Queue A's LM remainder)."""
-    if cfg.family != "dense":
+    family but `dense` and `moe`, M-RoPE and LayerNorm (they come with
+    the slices of ROADMAP Queue A's LM remainder)."""
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet (a later "
-            "slice of the port, ROADMAP Queue A); only 'dense' runs")
+            "slice of the port, ROADMAP Queue A); 'dense' and 'moe' run")
     if cfg.mrope:
         raise NotImplementedError(f"{cfg.name}: M-RoPE comes with the vlm "
                                   "slice")

@@ -1,5 +1,7 @@
-"""Model assembly for the dense family: parameters, full logits, prefill,
-decode caches and the one-token decode step (port of `repro.models.lm`).
+"""Model assembly for the dense and moe families: parameters, forward,
+full logits, prefill, decode caches and the one-token decode step (port
+of `repro.models.lm`). A moe block holds `moe` (`models/moe.py`) where a
+dense block holds `mlp`; everything else is shared.
 
 The reference stacks layer weights on a leading L axis and drives them
 with `lax.scan`; here the layers are an `nn.ModuleList` looped in
@@ -21,6 +23,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import attention as ATT
 from repro_torch.models.config import check_supported
 from repro_torch.models.layers import MLP, Norm, apply_norm
+from repro_torch.models.moe import MoE, moe_ffn
 
 
 class Block(nn.Module):
@@ -29,12 +32,16 @@ class Block(nn.Module):
         self.ln1 = Norm(cfg.d_model, device, dtype)
         self.attn = ATT.Attention(cfg, device, dtype)
         self.ln2 = Norm(cfg.d_model, device, dtype)
-        self.mlp = MLP(cfg, device, dtype)
+        if cfg.family == "moe":
+            self.moe = MoE(cfg, device, dtype)
+        else:
+            self.mlp = MLP(cfg, device, dtype)
 
 
 class LM(nn.Module):
-    """Parameters of a dense decoder: `embed` (Vp, d), `layers`,
-    `final_norm`, `lm_head` (an `nn.Linear`, weight (Vp, d))."""
+    """Parameters of a decoder: `embed` (Vp, d), `layers`, `final_norm`,
+    `lm_head` (an `nn.Linear`, weight (Vp, d)). Every parameter is in
+    the model dtype but a moe block's router, which is f32."""
 
     def __init__(self, cfg, device):
         super().__init__()
@@ -58,7 +65,9 @@ def init_params(cfg, generator: torch.Generator | int, device=None) -> LM:
     """Random weights with the reference's scales (normal; embeddings
     x0.02, projections x d_in^-0.5; norms 1, biases 0), drawn from an
     explicit generator (a seed makes one on the device). The numbers are
-    not the reference's: its `jax.random` draws differ."""
+    not the reference's: its `jax.random` draws differ. d_in is an
+    `nn.Linear` weight's last dimension; a moe tensor is stored for
+    `x @ W`, (.., d_in, d_out), so its d_in is the one before."""
     device = resolve_device(device)
     if isinstance(generator, int):
         generator = torch.Generator(device).manual_seed(generator)
@@ -69,7 +78,8 @@ def init_params(cfg, generator: torch.Generator | int, device=None) -> LM:
                 t.fill_(1.0 if name.endswith(".w") else 0.0)
                 continue
             t.normal_(generator=generator)
-            t.mul_(0.02 if name == "embed" else t.shape[-1] ** -0.5)
+            d_in = t.shape[-2] if ".moe." in name else t.shape[-1]
+            t.mul_(0.02 if name == "embed" else d_in ** -0.5)
     return model.requires_grad_(False)
 
 
@@ -88,33 +98,62 @@ def _positions(batch: dict, b: int, s: int, device) -> torch.Tensor:
     return torch.as_tensor(pos, device=device)
 
 
-def _mlp_residual(cfg, lp: Block, x):
-    return x + lp.mlp(apply_norm(cfg, lp.ln2, x))
+def _ffn_residual(cfg, lp: Block, x):
+    """-> (x + the block's FFN of x, its auxiliary loss: the router's
+    load-balancing loss for a moe block, None for a dense one)."""
+    h = apply_norm(cfg, lp.ln2, x)
+    if cfg.family == "moe":
+        y, aux = moe_ffn(cfg, lp.moe, h)
+        return x + y, aux
+    return x + lp.mlp(h), None
 
 
 def _block_fwd(cfg, lp: Block, x, positions):
-    """-> (x after the block, the k and v its attention cached)."""
+    """-> (x after the block, its auxiliary loss or None, the k and v its
+    attention cached)."""
     a, k, v = ATT.self_attention(cfg, lp.attn, apply_norm(cfg, lp.ln1, x),
                                  positions)
-    return _mlp_residual(cfg, lp, x + a), k, v
+    x, aux = _ffn_residual(cfg, lp, x + a)
+    return x, aux, k, v
+
+
+def _stack(cfg, model: LM, batch: dict, caches: dict | None):
+    """The layers over `batch["tokens"]` -> (hidden after the final norm,
+    aux summed over the layers); with `caches`, each layer's k and v
+    land in caches["k"][i] and caches["v"][i]."""
+    tokens = torch.as_tensor(batch["tokens"], device=model.device)
+    b, s = tokens.shape
+    positions = _positions(batch, b, s, model.device)
+    x = _embed(cfg, model, tokens)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i, lp in enumerate(model.layers):
+        x, a, k, v = _block_fwd(cfg, lp, x, positions)
+        if a is not None:
+            aux = aux + a
+        if caches is not None:
+            caches["k"][i], caches["v"][i] = k, v
+    return apply_norm(cfg, model.final_norm, x), aux
+
+
+@torch.no_grad()
+def forward(cfg, model: LM, batch: dict):
+    """-> (hidden (B, S, d), aux_loss f32 scalar summed over the layers)."""
+    return _stack(cfg, model, batch, None)
 
 
 @torch.no_grad()
 def forward_collect(cfg, model: LM, batch: dict):
     """Prefill: -> (hidden (B, S, d), dense caches {"k", "v"
     (L, B, S, KV, hd), "pos" (B,)}) ready for `decode_step`."""
-    tokens = torch.as_tensor(batch["tokens"], device=model.device)
-    b, s = tokens.shape
-    positions = _positions(batch, b, s, model.device)
-    x = _embed(cfg, model, tokens)
+    b, s = torch.as_tensor(batch["tokens"]).shape
+    dt = getattr(torch, cfg.dtype)
     shape = (cfg.n_layers, b, s, cfg.n_kv, cfg.hd)
-    ks = torch.empty(shape, dtype=x.dtype, device=x.device)
-    vs = torch.empty_like(ks)
-    for i, lp in enumerate(model.layers):
-        x, ks[i], vs[i] = _block_fwd(cfg, lp, x, positions)
-    pos = torch.full((b,), s, dtype=torch.int32, device=x.device)
-    return apply_norm(cfg, model.final_norm, x), {"k": ks, "v": vs,
-                                                  "pos": pos}
+    caches = {"k": torch.empty(shape, dtype=dt, device=model.device)}
+    caches["v"] = torch.empty_like(caches["k"])
+    hidden, _ = _stack(cfg, model, batch, caches)
+    caches["pos"] = torch.full((b,), s, dtype=torch.int32,
+                               device=model.device)
+    return hidden, caches
 
 
 def prefill_step(cfg, model: LM, batch: dict):
@@ -128,7 +167,7 @@ def prefill_step(cfg, model: LM, batch: dict):
 @torch.no_grad()
 def logits_full(cfg, model: LM, batch: dict) -> torch.Tensor:
     """Small-model convenience: full (B, S, vocab) logits."""
-    hidden, _ = forward_collect(cfg, model, batch)
+    hidden, _ = forward(cfg, model, batch)
     return model.lm_head(hidden)[..., :cfg.vocab]
 
 
@@ -178,7 +217,7 @@ def _decode_dense_stack(cfg, model: LM, x, caches):
         x = x + ATT.decode_self_attention(
             cfg, lp.attn, apply_norm(cfg, lp.ln1, x), caches["k"][i],
             caches["v"][i], pos, at)
-        x = _mlp_residual(cfg, lp, x)
+        x, _ = _ffn_residual(cfg, lp, x)
     return x, caches
 
 
@@ -191,5 +230,5 @@ def _decode_lsm_stack(cfg, model: LM, x, caches):
         a, lcache = ATT.lsm_decode_self_attention(
             cfg, lp.attn, apply_norm(cfg, lp.ln1, x), lcache, pos, slots[i])
         hot_len.append(lcache["hot_len"])
-        x = _mlp_residual(cfg, lp, x + a)
+        x, _ = _ffn_residual(cfg, lp, x + a)
     return x, dict(caches, hot_len=torch.stack(hot_len))

@@ -603,7 +603,7 @@ def _fails(bad, want, dtype):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("dh", [64, 128, 256])
-@pytest.mark.parametrize("group", [1, 3, 4, 8])
+@pytest.mark.parametrize("group", [1, 2, 3, 4, 8])
 @pytest.mark.parametrize("case", ["short", "long"])
 def test_lsm_decode_attention_kernel_matches_plain(cuda, case, group, dh,
                                                    dtype):
@@ -721,6 +721,46 @@ def test_lm_generate_on_card_matches_cpu(cuda, kind):
         else:
             torch.testing.assert_close(caches_c[key].cpu(), want, atol=1e-4,
                                        rtol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["dense", "lsm"])
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m",
+                                  "qwen3-moe-30b-a3b"])
+def test_moe_decode_on_card_matches_cpu(cuda, arch, kind):
+    """A smoke-size moe model, f32: one decode step from the same caches
+    on the card (kernel, experts as batched products there) and on the
+    CPU (plain versions) gives the same logits and caches; then
+    `generate` gives the same tokens, counters and caches."""
+    import copy
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.serving import generate, grow_dense, lsm_from_dense
+    cfg = get_config(arch).smoke()
+    model = lm.init_params(cfg, 3, device="cpu")
+    card = copy.deepcopy(model).to(cuda)
+    prompt = torch.randint(0, cfg.vocab, (2, 96),
+                           generator=torch.Generator().manual_seed(4))
+    _, dense = lm.prefill_step(cfg, model, {"tokens": prompt})
+    caches = (lsm_from_dense(cfg, dense, 160) if kind == "lsm"
+              else grow_dense(cfg, dense, 160))
+    on_card = {k: t.to(cuda) for k, t in caches.items()}
+    tok = prompt[:, -1]
+    lg, caches = lm.decode_step(cfg, model, tok, caches, kind)
+    before = KLA.decode_attention.launches
+    lg_c, on_card = lm.decode_step(cfg, card, tok.to(cuda), on_card, kind)
+    torch.cuda.synchronize()
+    assert KLA.decode_attention.launches - before == cfg.n_layers
+    torch.testing.assert_close(lg_c.cpu(), lg, atol=1e-4, rtol=1e-4)
+    for key, want in caches.items():
+        torch.testing.assert_close(on_card[key].cpu(), want, atol=1e-4,
+                                   rtol=1e-4)
+    toks, caches = generate(cfg, model, {"tokens": prompt}, 48, kind)
+    toks_c, caches_c = generate(cfg, card, {"tokens": prompt}, 48, kind)
+    assert torch.equal(toks_c.cpu(), toks)
+    for key, want in caches.items():
+        torch.testing.assert_close(caches_c[key].cpu(), want, atol=1e-4,
+                                   rtol=1e-4)
 
 
 @pytest.mark.gpu

@@ -1,4 +1,5 @@
-"""Port parity of the LM serving path (dense family, sLSM-tiered decode).
+"""Port parity of the LM serving path (dense and moe families,
+sLSM-tiered decode).
 
 Every check runs the reference (JAX on the CPU, Pallas in interpret
 mode) and the port (torch on the CPU, where `decode_attention` runs its
@@ -68,8 +69,8 @@ def _close(got, want, **tol):
 # -- (a) the kernel's plain version -------------------------------------------
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("dh", [16, 128, 256])
-@pytest.mark.parametrize("group", [1, 2, 4])
+@pytest.mark.parametrize("dh", [16, 64, 128, 256])
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
 def test_decode_attention_plain_matches_pallas(group, dh, dtype):
     """Ragged bitmap with one all-invalid (batch, kv-head) row against
     the Pallas kernel; prefix validity against the jnp reference."""
