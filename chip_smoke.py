@@ -205,8 +205,43 @@ Phases, in order; any failure raises and exits non-zero:
              prompts, tiered vs dense logits rel L2 <= 2e-2, layer 0 at
              the kernel tolerance, the masked-block control; then a
              profiled decode window on the tiered cache; peak memory.
+  hybrid_kernel — the attention kernel at Zamba2-1.2B's shared-block
+             shape (32 heads, kv 32, head dim 64: a query group of 1, one
+             head a pass), the tiered bf16 case of lsm_kernel with its
+             planted faults; the record joins lsm_attention's cases.
+  ssm_serve — Mamba2-370M at full width and depth (bf16, seeded random
+             weights; attention-free, so no kernel launches and the
+             counters must stay 0): `generate` for 2 x 16,384-token
+             prompts and 32 new tokens (the state decode), finite logits,
+             tokens in range; then teacher-forced: prefill 16,128 tokens,
+             decode the next 16 given ones, each step's logits against
+             `forward` over all 16,384 tokens at rel L2 <= 2e-2 (or 3x
+             that step's bf16 floor, the bf16 forward against an f32
+             forward of the same weights, if that is more), and the same
+             check in f32 at rel L2 <= 1e-3 (the sharp one); decode ms
+             a step, prefill s, a decode window's device-busy share, peak
+             memory.
+  hybrid_serve — Zamba2-1.2B at full width and depth (bf16, seeded
+             random weights; 38 Mamba-2 blocks, one shared attention
+             block after every 6th, each of its 6 applications with its
+             own tiered KV cache), as lm_serve: 2 x 24,576-token prompts,
+             32 new tokens, exactly 6 x 31 = 186 kernel launches, all in
+             place, 23 cold blocks and 1,055 hot tokens an application;
+             then lm_seal on the shared stack.
+  hybrid_agree — the same model as lm_agree: 2 x 8,192-token prompts,
+             the first application at the kernel tolerance at every step,
+             the masked-block control. In bf16 a step's tiered vs dense
+             logits rel L2 <= 2e-2 or 3x that step's dense floor (the
+             dense step with the plain attention against the kernel's) if
+             that is more — the 38 Mamba-2 blocks carry an ulp of
+             attention difference into their state, and a masked block
+             moves the logits about as much. So the same phase runs on an
+             f32 copy of the weights (hybrid_agree f32): tiered vs dense
+             rel L2 <= 1e-3 at every step, and the masked-block control's
+             logits must exceed 1e-3.
              The kernel's launches are counted by path (lm_serve,
-             lm_agree, moe_serve, moe_agree).
+             lm_agree, moe_serve, moe_agree, hybrid_serve, hybrid_agree,
+             hybrid_agree_f32).
 
 The last two lines of standard output are the kernels' JSON record and
 the device record; nothing of JAX or of the reference package is used.
@@ -236,10 +271,16 @@ F32_FLOPS = 67e12               # H100 SXM float32 outside the tensor cores
 LM_ARCH = "phi4-mini-3.8b"
 MOE_SERVE_ARCH = "granite-moe-1b-a400m"  # full width and depth
 MOE_AGREE_ARCH = "qwen3-moe-30b-a3b"     # full width and depth, ~60.1 GB
+SSM_ARCH = "mamba2-370m"        # full width and depth, no KV cache
+HYBRID_ARCH = "zamba2-1.2b"     # full width and depth, 6 shared-block caches
+SSM_PROMPT = 16_384             # 64 SSD chunks of 256
+SSM_CHECK_STEPS = 16            # teacher-forced steps after S - 256 tokens
+F32_LIMIT = 1e-3                # f32 rel L2 of two decodes' logits
 SERVE_PROMPT, SERVE_STEPS = 24_576, 32   # 23 cold blocks + 1,024 hot
 SERVE_HOT = 1_056               # hot tokens a serve step attends at first
 AGREE_PROMPT, AGREE_STEPS = 8_192, 8     # 7 cold blocks <= topk 16
-OWN_ROUTING_X = 3               # moe own-routing rel L2 / the dense floor's
+AGREE_LIMIT = 2e-2              # rel L2 of two decodes' logits, or FLOOR_X
+FLOOR_X = 3                     # times a bf16 floor that reaches it
 FENCE_DEEP_RUNS = 4             # runs of level_cap(2) in the deep fence case
 RANGE_WIDE = 16_384             # scan rows wider than one merge tile
 ADAPTIVE_EPS = (2 ** -6, 1e-3, 2 ** -13)   # k = 6, 10, 13 by level
@@ -3625,8 +3666,10 @@ def lsm_kernel_cases(device, seed: int, cfg, which) -> list:
 
 def lm_serve_phase(device, seed: int, counters: dict, cfg=None):
     """`generate(kind="lsm")` at full width (Phi-4-mini unless `cfg` is
-    given): 2 requests x 24,576-token prompts, 32 new tokens. The
-    counters are set to 0 just before `generate` and read just after."""
+    given): 2 requests x 24,576-token prompts, 32 new tokens; the kernel
+    once per attention (a layer, or an application of the hybrid's
+    shared block) per step. The counters are set to 0 just before
+    `generate` and read just after."""
     import torch
     from repro_torch.kernels.lsm_attention import ops as KLA
     from repro_torch.models import lm
@@ -3649,17 +3692,18 @@ def lm_serve_phase(device, seed: int, counters: dict, cfg=None):
     tiered = KLA.lsm_decode_attention.launches
     peak = torch.cuda.max_memory_allocated()
     n_steps = SERVE_STEPS - 1
-    want = cfg.n_layers * n_steps
+    want = lm.n_attention(cfg) * n_steps
     if launches["lsm_attention"] != want or tiered != want:
         raise AssertionError(f"lsm_attention launched "
                              f"{launches['lsm_attention']} times, "
                              f"{tiered} of them in place on the tiered "
                              f"cache; expected {want} of each (one per "
-                             f"layer per step)")
+                             f"attention per step)")
     if not stats["finite"]:
         raise AssertionError(f"{cfg.name} serve: a logit was not finite")
-    n_blk = caches["n_blocks"].unique().tolist()
-    hot = caches["hot_len"].unique().tolist()
+    stack = lm.kv_stack(cfg, caches)
+    n_blk = stack["n_blocks"].unique().tolist()
+    hot = stack["hot_len"].unique().tolist()
     want_blk = (SERVE_PROMPT - 1) // cfg.lsm_block
     want_hot = SERVE_PROMPT - want_blk * cfg.lsm_block + n_steps
     if n_blk != [want_blk] or hot != [want_hot]:
@@ -3685,8 +3729,9 @@ def decode_window(cfg, model, caches, tok, n: int = 4):
     """Device-busy share of `n` decode steps: host time unprofiled, then
     the device time torch.profiler traces over the same number. No
     `torch.gather` kernel may run in the window: the attention reads the
-    cold blocks in place (the only concatenation left is RoPE's,
-    recorded as `window_cat_ms`)."""
+    cold blocks in place (the only concatenation left is RoPE's, and a
+    Mamba-2 layer's rolling conv history; recorded as
+    `window_cat_ms`)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import lm
@@ -3719,38 +3764,42 @@ def decode_window(cfg, model, caches, tok, n: int = 4):
 
 
 def lm_seal_phase(cfg, model, caches, seed: int):
-    """Fill the hot window with seeded K/V, seal, check the new block and
-    its summary, then decode one step and hold layer 0's kernel output
-    against the plain version."""
+    """Fill the hot window of every slot of the stacked KV cache (each
+    layer's, or each application's of the hybrid's shared block) with
+    seeded K/V, seal, check the new block and its summary, then decode
+    one step and hold the first attention's kernel output against the
+    plain version."""
     import torch
     from repro_torch.kernels.lsm_attention import ops as KLA
     from repro_torch.models import lm
     from repro_torch.serving import seal_hot_block
 
     w, mu = cfg.lsm_hot_window, cfg.lsm_block
-    hl = int(caches["hot_len"][0, 0])
-    gen = torch.Generator(caches["hot_k"].device).manual_seed(seed + 7)
+    stack = lm.kv_stack(cfg, caches)
+    hl = int(stack["hot_len"][0, 0])
+    gen = torch.Generator(stack["hot_k"].device).manual_seed(seed + 7)
     for key in ("hot_k", "hot_v"):
-        t = caches[key]
+        t = stack[key]
         t[:, :, hl:] = torch.randn(t[:, :, hl:].shape, generator=gen,
                                    device=t.device).to(t.dtype)
-    caches["hot_len"].fill_(w)
-    old_k = caches["hot_k"][:, :, :mu].clone()
-    old_v = caches["hot_v"][:, :, :mu].clone()
-    n0 = caches["n_blocks"].clone()
+    stack["hot_len"].fill_(w)
+    old_k = stack["hot_k"][:, :, :mu].clone()
+    old_v = stack["hot_v"][:, :, :mu].clone()
+    n0 = stack["n_blocks"].clone()
     caches = seal_hot_block(cfg, caches)
+    stack = lm.kv_stack(cfg, caches)
     li = torch.arange(n0.shape[0], device=n0.device)[:, None]
     bi = torch.arange(n0.shape[1], device=n0.device)[None, :]
     slot = n0.long()
-    if not (torch.equal(caches["blk_k"][li, bi, slot], old_k)
-            and torch.equal(caches["blk_v"][li, bi, slot], old_v)):
+    if not (torch.equal(stack["blk_k"][li, bi, slot], old_k)
+            and torch.equal(stack["blk_v"][li, bi, slot], old_v)):
         raise AssertionError("lm_seal: the new block is not the old hot[:mu]")
     # the summary: an f32 mean rounded once to bf16, as the kernel's output
-    summ = caches["summ"][li, bi, slot]
+    summ = stack["summ"][li, bi, slot]
     if not att_within(summ, old_k.float().mean(dim=2), cfg.dtype):
         raise AssertionError("lm_seal: summary is not the block's mean")
-    if not (torch.equal(caches["n_blocks"], n0 + 1)
-            and bool((caches["hot_len"] == w - mu).all())):
+    if not (torch.equal(stack["n_blocks"], n0 + 1)
+            and bool((stack["hot_len"] == w - mu).all())):
         raise AssertionError("lm_seal: counters did not move")
     seen = []
     kernel = KLA.lsm_decode_attention
@@ -3774,11 +3823,31 @@ def lm_seal_phase(cfg, model, caches, seed: int):
     hot_len, ok = args[3], args[7]
     if not bool(torch.isfinite(logits).all()):
         raise AssertionError("lm_seal: a logit after the seal is not finite")
-    return dict(n_blocks=int(caches["n_blocks"][0, 0]),
-                hot_len=int(caches["hot_len"][0, 0]),
+    stack = lm.kv_stack(cfg, caches)
+    return dict(arch=cfg.name, n_blocks=int(stack["n_blocks"][0, 0]),
+                hot_len=int(stack["hot_len"][0, 0]),
                 layer0_kernel_max_abs_err=err,
                 layer0_valid_positions=int(hot_len.sum()) * cfg.n_kv
                 + int(ok.sum()) * mu)
+
+
+def rel_l2(a, b) -> float:
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def fork(caches: dict, everything: bool = False) -> dict:
+    """Caches for a side step: the recurrent state (the ssm and hybrid
+    families' `ssm` and `conv`, which a decode step advances in place)
+    copied, the KV cache shared (a side step writes only the hot slot or
+    position the real step then overwrites); with `everything`, a deep
+    copy."""
+    out = {}
+    for k, t in caches.items():
+        if isinstance(t, dict):
+            out[k] = fork(t, everything) if everything else t
+        else:
+            out[k] = t.clone() if everything or k in ("ssm", "conv") else t
+    return out
 
 
 class expert_picks:
@@ -3840,10 +3909,20 @@ def lm_agree_phase(cfg, model, seed: int):
 
     Through 32 bf16 layers any change of summation order moves the
     logits by nearly as much as the 2e-2 limit allows, so the sharp
-    check is layer 0: its input (the token's embedding) and its K/V are
-    the same in both layouts, and its kernel outputs must agree to the
-    kernel tolerance. A control step with the top-scoring selected block
-    masked out in every layer must fail that check.
+    check is "layer 0", the first attention call: its input (the
+    token's embedding, or for the hybrid the same ssm blocks' output
+    from the same state) and its K/V are the same in both layouts, and
+    its kernel outputs must agree to the kernel tolerance. A control
+    step with the top-scoring selected block masked out in every layer
+    must fail that check. Side steps run on `fork`s of the caches, so a
+    hybrid's ssm state advances once a step. A hybrid's Mamba-2 blocks
+    keep each step's ulp of attention difference in their state, so in
+    bf16 its logits limit at a step is 2e-2 or FLOOR_X times that step's
+    dense floor (the plain-attention dense step against the kernel's),
+    if that is more; that limit does not see a masked block, whose
+    logits move by about as much. In f32 (a model's f32 copy) the limit
+    is F32_LIMIT at every step, and the control's logits must exceed
+    it.
 
     A moe model's router picks its top k experts, a choice that one
     bf16 ulp of difference in a layer's input can flip between two
@@ -3857,8 +3936,8 @@ def lm_agree_phase(cfg, model, seed: int):
     an own-routing floor: the dense step with the plain version's
     attention and its own routing, whose flips come from summation
     order alone. The own-routing tiered rel L2 must stay within
-    OWN_ROUTING_X times the largest floor over the steps (or 2e-2, if
-    that is more), so a fault that acts through the routing still fails;
+    FLOOR_X times the largest floor over the steps (or 2e-2, if that is
+    more), so a fault that acts through the routing still fails;
     the number of (layer, token) expert sets that differ is recorded. A
     moe record adds `decode_window` of the tiered cache after the last
     step."""
@@ -3873,10 +3952,10 @@ def lm_agree_phase(cfg, model, seed: int):
     max_len = AGREE_PROMPT + 2 * AGREE_STEPS
     tiered = lsm_from_dense(cfg, dense, max_len)
     dense = grow_dense(cfg, dense, max_len)
-    n_blk = int(tiered["n_blocks"][0, 0])
+    n_blk = int(lm.kv_stack(cfg, tiered)["n_blocks"][0, 0])
     if n_blk > cfg.lsm_topk:
         raise AssertionError(f"lm_agree: {n_blk} blocks > topk")
-    floor = {k: t.clone() for k, t in dense.items()}
+    floor = fork(dense, everything=True)
     kernel = KLA.decode_attention        # carries the launch count
     entry = {"dense": "decode_attention_op", "lsm": "lsm_decode_attention"}
 
@@ -3912,9 +3991,6 @@ def lm_agree_phase(cfg, model, seed: int):
             setattr(KLA, name, real)
         return lg.float(), caches, seen[0]
 
-    def rel_l2(a, b):
-        return float((a - b).norm() / b.norm())
-
     tok = logits.argmax(-1)
     errs, floor_errs, l0_errs, ctl, own, own_floor = [], [], [], [], [], []
     launches = 0
@@ -3933,17 +4009,18 @@ def lm_agree_phase(cfg, model, seed: int):
         # the same cache: each writes only the hot slot that the real
         # step then overwrites, and their counters are dropped
         with forced("replay"):
-            lc, _, c0 = step(tiered, "lsm", drop_block=True)
+            lc, _, c0 = step(fork(tiered), "lsm", drop_block=True)
         if moe:
             free = expert_picks()
             with free.record():
-                lo, _, _ = step(tiered, "lsm")
+                lo, _, _ = step(fork(tiered), "lsm")
             own.append(dict(rel_l2=rel_l2(lo, ld),
                             experts_differ=free.differ(picks)))
         n2 = kernel.launches
         with forced("replay"):
             lt, tiered, t0 = step(tiered, "lsm")
-        if (n1 - n0, kernel.launches - n2) != (cfg.n_layers, cfg.n_layers):
+        per_step = lm.n_attention(cfg)
+        if (n1 - n0, kernel.launches - n2) != (per_step, per_step):
             raise AssertionError("lm_agree: a decode path skipped the kernel")
         launches += n1 - n0 + kernel.launches - n2
         if not bool(torch.isfinite(ld).all() & torch.isfinite(lt).all()):
@@ -3960,17 +4037,27 @@ def lm_agree_phase(cfg, model, seed: int):
         # summation order, bf16 rounding through all layers); for moe,
         # first with its own routing on the slot the forced step rewrites
         if moe:
-            lf, _, _ = step(floor, "dense", plain=True)
+            lf, _, _ = step(fork(floor), "dense", plain=True)
             own_floor.append(rel_l2(lf, ld))
         with forced("replay"):
             lp, floor, _ = step(floor, "dense", plain=True)
         floor_errs.append(rel_l2(lp, ld))
         tok = ld.argmax(-1)
     window = decode_window(cfg, model, tiered, tok) if moe else {}
-    if max(errs) > 2e-2:
+    if cfg.dtype == "float32":
+        limits = [F32_LIMIT] * len(errs)
+    elif cfg.family == "hybrid":
+        limits = [max(AGREE_LIMIT, FLOOR_X * f) for f in floor_errs]
+    else:
+        limits = [AGREE_LIMIT] * len(errs)
+    if any(e > lim for e, lim in zip(errs, limits)):
         raise AssertionError(f"{cfg.name} agree: tiered vs dense rel L2 "
-                             f"{errs}")
-    own_limit = max(2e-2, OWN_ROUTING_X * max(own_floor, default=0.0))
+                             f"{errs} over {limits} (dense floor "
+                             f"{floor_errs})")
+    if cfg.dtype == "float32" and min(c["rel_l2"] for c in ctl) <= F32_LIMIT:
+        raise AssertionError(f"{cfg.name} agree: the logits with a selected "
+                             f"block masked out pass {F32_LIMIT}: {ctl}")
+    own_limit = max(AGREE_LIMIT, FLOOR_X * max(own_floor, default=0.0))
     if moe and max(o["rel_l2"] for o in own) > own_limit:
         raise AssertionError(f"{cfg.name} agree: own-routing tiered vs "
                              f"dense rel L2 {own} over {own_limit} "
@@ -3978,6 +4065,7 @@ def lm_agree_phase(cfg, model, seed: int):
     return dict(arch=cfg.name, prompt=AGREE_PROMPT, steps=AGREE_STEPS,
                 n_blocks=n_blk, launches=launches,
                 max_rel_l2=max(errs), rel_l2=errs,
+                limit=limits if cfg.family == "hybrid" else limits[0],
                 plain_vs_kernel_dense_rel_l2=floor_errs,
                 layer0_max_abs_err=l0_errs,
                 layer0_mean_abs_out=float(d0.float().abs().mean()),
@@ -4024,6 +4112,177 @@ def moe_agree_phase(device, seed: int):
                phase_s=time.perf_counter() - t0)
     del model, params
     return rec
+
+
+def hybrid_kernel_phase(device, seed: int) -> list:
+    """`lsm_kernel` at Zamba2-1.2B's shared-block shape: q (2, 32, 64),
+    kv 32, a query group of 1 (one head a pass), the tiered bf16 case of
+    `lsm_kernel_phase` with its planted faults and tolerance."""
+    from repro_torch.configs import get_config
+    recs = lsm_kernel_cases(device, seed, get_config(HYBRID_ARCH),
+                            (("tiered", "bfloat16"),))
+    for rec in recs:
+        rec["case"] = f"hybrid {HYBRID_ARCH}: {rec['case']}"
+    return recs
+
+
+def ssm_teacher_forced(cfg, model, prompt) -> dict:
+    """Prefill S - 256 tokens, decode the next SSM_CHECK_STEPS given
+    tokens, and hold each step's logits (and the prefill's last) against
+    `forward` over all S tokens at the same position: the chunked SSD
+    against the recurrent state decode. The bf16 floor is the bf16
+    forward against an f32 forward of the same weights at those
+    positions; a step's limit is AGREE_LIMIT, or FLOOR_X times its
+    floor if that is more. With random weights through 48 layers that
+    floor is ~0.3, so the sharp check is the same one in f32, whose
+    floor is the segsum's f32 rounding alone, held to F32_LIMIT."""
+    import copy
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.serving import grow_dense
+
+    s = prompt.shape[1]
+    cut = s - 256
+    at = torch.arange(cut - 1, cut + SSM_CHECK_STEPS)     # logits' positions
+
+    def head(m, hidden):
+        return m.lm_head(hidden[:, at.to(hidden.device)])[..., :cfg.vocab]
+
+    def decoded(c, m):
+        lg, caches = lm.prefill_step(c, m, {"tokens": prompt[:, :cut]})
+        caches = grow_dense(c, caches, s)
+        out = [lg]
+        for i in range(SSM_CHECK_STEPS):
+            lg, caches = lm.decode_step(c, m, prompt[:, cut + i], caches)
+            out.append(lg)
+        return torch.stack(out, dim=1)
+
+    def errs(got, want):
+        return [rel_l2(got[:, i], want[:, i]) for i in range(got.shape[1])]
+
+    with torch.no_grad():
+        full = head(model, lm.forward(cfg, model, {"tokens": prompt})[0])
+        dec = decoded(cfg, model)
+        c32 = dataclasses.replace(cfg, dtype="float32")
+        m32 = copy.deepcopy(model).float()
+        full32 = head(m32, lm.forward(c32, m32, {"tokens": prompt})[0])
+        dec32 = decoded(c32, m32)
+    if not bool(torch.isfinite(dec).all() & torch.isfinite(full).all()):
+        raise AssertionError(f"{cfg.name} teacher-forced: a logit is not "
+                             "finite")
+    bf16, floor, f32 = errs(dec, full), errs(full, full32), errs(dec32,
+                                                                  full32)
+    limits = [max(AGREE_LIMIT, FLOOR_X * f) for f in floor]
+    del m32
+    if any(e > lim for e, lim in zip(bf16, limits)) or max(f32) > F32_LIMIT:
+        raise AssertionError(f"{cfg.name} teacher-forced: decode vs forward "
+                             f"rel L2 {bf16} over {limits} (bf16 floor "
+                             f"{floor}), or in f32 {f32} over "
+                             f"{F32_LIMIT}")
+    return dict(check_prefill=cut, check_steps=SSM_CHECK_STEPS,
+                decode_vs_forward_rel_l2=bf16, max_rel_l2=max(bf16),
+                bf16_floor_rel_l2=floor, limit=limits,
+                f32_decode_vs_forward_rel_l2=f32, f32_limit=F32_LIMIT)
+
+
+def ssm_serve_phase(device, seed: int, counters: dict) -> dict:
+    """`ssm_serve`: Mamba2-370M at full width and depth (bf16, seeded
+    random weights): `generate` (the state decode; an ssm model has no
+    KV cache to tier) for 2 x SSM_PROMPT-token prompts and SERVE_STEPS
+    new tokens. It launches no hand-written kernel: the SSD and the
+    decode step are plain PyTorch, as the reference's are plain jnp, and
+    the counters, set to 0 just before `generate`, must stay 0. Then
+    `ssm_teacher_forced`; decode ms a step, prefill s, a decode window's
+    device-busy share, peak memory from before the weights are made."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.serving import generate
+
+    cfg = get_config(SSM_ARCH)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = lm.init_params(cfg, seed, device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    gen = torch.Generator().manual_seed(seed + 9)
+    prompt = torch.randint(0, cfg.vocab, (2, SSM_PROMPT), generator=gen)
+    for fn in counters.values():
+        fn.launches = 0
+    stats = {}
+    toks, caches = generate(cfg, model, {"tokens": prompt}, SERVE_STEPS,
+                            "dense", stats=stats)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    if any(launches.values()):
+        raise AssertionError(f"ssm_serve launched kernels: {launches}")
+    if not stats["finite"]:
+        raise AssertionError(f"{cfg.name} serve: a logit was not finite")
+    if toks.shape != (2, SERVE_STEPS) or not (
+            (toks >= 0) & (toks < cfg.vocab)).all():
+        raise AssertionError(f"{cfg.name} serve: bad tokens "
+                             f"{tuple(toks.shape)}")
+    pos = caches["pos"].unique().tolist()
+    if pos != [SSM_PROMPT + SERVE_STEPS - 1]:
+        raise AssertionError(f"{cfg.name} serve: pos {pos}")
+    n_steps = SERVE_STEPS - 1
+    params = list(model.parameters())
+    rec = dict(
+        arch=cfg.name, dtype=cfg.dtype, batch=2, prompt=SSM_PROMPT,
+        new_tokens=SERVE_STEPS, init_s=init_s,
+        parameters=sum(p.numel() for p in params),
+        prefill_s=stats["prefill_s"],
+        decode_ms_per_step=stats["decode_s"] / n_steps * 1e3,
+        decode_tokens_per_s=2 * n_steps / stats["decode_s"],
+        launches=launches, kernels_launched="none (plain PyTorch SSD and "
+        "state decode, as the reference's plain jnp)")
+    rec.update(decode_window(cfg, model, caches, toks[:, -1]))
+    del caches, params
+    rec.update(ssm_teacher_forced(cfg, model, prompt))
+    rec.update(max_memory_allocated=torch.cuda.max_memory_allocated(),
+               phase_s=time.perf_counter() - t0)
+    del model
+    return rec
+
+
+def hybrid_phases(device, seed: int, counters: dict) -> tuple:
+    """`hybrid_serve` and `hybrid_agree`: Zamba2-1.2B at full width and
+    depth (bf16, seeded random weights; 38 Mamba-2 blocks and one shared
+    attention block applied after every 6th, 6 applications each with
+    its own tiered KV cache). `lm_serve_phase`: 2 x 24,576-token prompts
+    (23 cold blocks an application), 32 new tokens, exactly 6 in-place
+    kernel launches a step (186); `lm_seal_phase` on the shared stack;
+    then `lm_agree_phase` at 2 x 8,192 tokens, in bf16 and on an f32
+    copy of the weights (the check that sees a masked block in the
+    logits). Peak memory from before the weights are made."""
+    import copy
+    import torch
+    from repro_torch.configs import get_config
+
+    cfg = get_config(HYBRID_ARCH)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model, caches, serve = lm_serve_phase(device, seed, counters, cfg)
+    serve["parameters"] = sum(p.numel() for p in model.parameters())
+    seal = lm_seal_phase(cfg, model, caches, seed)
+    serve.update(max_memory_allocated=torch.cuda.max_memory_allocated(),
+                 phase_s=time.perf_counter() - t0)
+    del caches
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    agree = lm_agree_phase(cfg, model, seed)
+    agree.update(max_memory_allocated=torch.cuda.max_memory_allocated(),
+                 phase_s=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    m32 = copy.deepcopy(model).float()
+    del model
+    torch.cuda.reset_peak_memory_stats()
+    agree32 = lm_agree_phase(c32, m32, seed)
+    agree32.update(max_memory_allocated=torch.cuda.max_memory_allocated(),
+                   phase_s=time.perf_counter() - t0)
+    del m32
+    return serve, seal, agree, agree32
 
 
 # --------------------------------------------------------------------------
@@ -4233,18 +4492,36 @@ def main() -> int:
     log(f"moe_agree [{card}]: " + json.dumps(moe_agree))
     torch.cuda.empty_cache()
 
+    hybrid_cases = hybrid_kernel_phase(device, args.seed)
+    ssm_serve = ssm_serve_phase(device, args.seed, counters)
+    log(f"ssm_serve [{card}] (launches no kernel): "
+        + json.dumps(ssm_serve))
+    torch.cuda.empty_cache()
+    hybrid_serve, hybrid_seal, hybrid_agree, hybrid_f32 = hybrid_phases(
+        device, args.seed, counters)
+    log(f"hybrid_serve [{card}]: " + json.dumps(hybrid_serve))
+    log(f"hybrid_seal [{card}]: " + json.dumps(hybrid_seal))
+    log(f"hybrid_agree [{card}]: " + json.dumps(hybrid_agree))
+    log(f"hybrid_agree f32 [{card}]: " + json.dumps(hybrid_f32))
+    torch.cuda.empty_cache()
+
     for rec in kernels:
         rec["launches"] = launches[rec["name"]]
         rec["launches_by_path"] = {k: v[rec["name"]]
                                    for k, v in by_path.items()}
         rec["card"] = card
-    lsm_rec["cases"].extend(moe_cases)
+    lsm_rec["cases"].extend(moe_cases + hybrid_cases)
     lsm_rec.update(launches=serve["launches"]["lsm_attention"],
                    launches_by_path={
                        "lm_serve": serve["launches"]["lsm_attention"],
                        "lm_agree": agree["launches"],
                        "moe_serve": moe_serve["launches"]["lsm_attention"],
-                       "moe_agree": moe_agree["launches"]}, card=card)
+                       "moe_agree": moe_agree["launches"],
+                       "hybrid_serve":
+                           hybrid_serve["launches"]["lsm_attention"],
+                       "hybrid_agree": hybrid_agree["launches"],
+                       "hybrid_agree_f32": hybrid_f32["launches"]},
+                   card=card)
     kernels.append(lsm_rec)
     print(json.dumps({"kernels": kernels}))
     print(device_line)

@@ -2,9 +2,9 @@
 registry (`get_config`), the port's copy of `repro.configs`.
 
 The registry holds the configurations of the families the port runs,
-`dense` and `moe`. The reference's other assigned architectures are
-known by id; asking for one raises `NotImplementedError` naming the
-slice that will add it.
+`dense`, `moe`, `ssm` and `hybrid`. The reference's other assigned
+architectures are known by id; asking for one raises
+`NotImplementedError` naming the slice that will add it.
 """
 from __future__ import annotations
 
@@ -12,14 +12,14 @@ import importlib
 
 DENSE_ARCHS = ["phi4_mini_3_8b", "qwen1_5_4b", "deepseek_7b", "gemma_7b"]
 MOE_ARCHS = ["granite_moe_1b_a400m", "qwen3_moe_30b_a3b"]
-ARCHS = DENSE_ARCHS + MOE_ARCHS
+SSM_ARCHS = ["mamba2_370m"]
+HYBRID_ARCHS = ["zamba2_1_2b"]
+ARCHS = DENSE_ARCHS + MOE_ARCHS + SSM_ARCHS + HYBRID_ARCHS
 
 # the reference's other assigned architectures -> the port slice adding them
 LATER = {
     "qwen2-vl-7b": "vlm (M-RoPE)",
-    "mamba2-370m": "ssm",
     "whisper-tiny": "encdec",
-    "zamba2-1.2b": "hybrid",
 }
 
 ALIASES = {a.replace("_", "-"): a for a in ARCHS}
@@ -33,7 +33,8 @@ def get_config(arch: str):
     if arch in LATER:
         raise NotImplementedError(
             f"{arch}: the {LATER[arch]} slice of the port adds it "
-            "(ROADMAP Queue A); this slice runs the dense and moe families")
+            "(ROADMAP Queue A); the port runs the dense, moe, ssm and hybrid "
+            "families")
     mod_name = ALIASES.get(arch, arch).replace("-", "_").replace(".", "_")
     if mod_name not in ARCHS:
         raise KeyError(f"unknown architecture {arch!r}")

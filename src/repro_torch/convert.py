@@ -110,9 +110,12 @@ def state_to_leaves(state: SLSMState) -> list[np.ndarray]:
 # `nn.Linear` weights (d_out, d_in), so every projection is transposed
 # on the way in and out. Norm weights are `w`, q/k/v biases `bq`/`bk`/
 # `bv` in the reference and the Linear's `bias` here. A moe block's
-# `router`, `w_gate`, `w_up` and `w_down` are plain parameters in the
-# reference's layout (`layers.<i>.moe.w_up` is `layers/moe/w_up[i]`),
-# stacked on L and not transposed.
+# `router`, `w_gate`, `w_up` and `w_down` and a Mamba-2 mixer's leaves
+# (`in_proj`, `conv_w`, `conv_b`, `A_log`, `dt_bias`, `D`, `out_norm`,
+# `out_proj`) are plain parameters in the reference's layout
+# (`layers.<i>.moe.w_up` is `layers/moe/w_up[i]`), stacked on L and not
+# transposed. The hybrid family's `shared` attention block is one block,
+# not stacked.
 
 def _from_numpy(a, dtype=None, device="cpu") -> torch.Tensor:
     a = np.array(a)           # a copy: the port writes caches in place
@@ -135,16 +138,15 @@ def _lm_source(name: str):
     """Port parameter name -> (reference path, layer index or None,
     transposed)."""
     parts = name.split(".")
-    if parts[0] == "layers":
-        i, sub, leaf = int(parts[1]), parts[2:-1], parts[-1]
-        if leaf == "bias":                        # attn.wq.bias -> attn.bq
-            return ("layers", sub[0], "b" + sub[1][1:]), i, False
-        if leaf == "weight":
-            return ("layers", *sub), i, True
-        return ("layers", *sub, leaf), i, False
-    if parts[-1] == "weight":                     # lm_head
-        return tuple(parts[:-1]), None, True
-    return tuple(parts), None, False
+    layer = None
+    if parts[0] == "layers":                      # layers.<i>.x -> layers/x[i]
+        layer, parts = int(parts[1]), ["layers"] + parts[2:]
+    *sub, leaf = parts
+    if leaf == "bias":                            # attn.wq.bias -> attn.bq
+        return (*sub[:-1], "b" + sub[-1][1:]), layer, False
+    if leaf == "weight":
+        return tuple(sub), layer, True
+    return tuple(parts), layer, False
 
 
 def _flatten(tree, prefix=()):
@@ -211,12 +213,16 @@ def lm_params_to_numpy(model) -> dict:
 
 
 def caches_from_numpy(tree: dict, device=None) -> dict:
-    """Decode caches (dense or lsm dict of numpy leaves) as tensors;
-    dtypes kept (counters int32, K/V in the model dtype)."""
+    """Decode caches (dense or lsm dict of numpy leaves, the hybrid
+    family's `shared` dict nested) as tensors; dtypes kept (counters
+    int32, K/V and the conv state in the model dtype, the ssm state
+    f32)."""
     device = resolve_device(device)
-    return {k: _from_numpy(v, device=device) for k, v in tree.items()}
+    return {k: caches_from_numpy(v, device) if isinstance(v, dict)
+            else _from_numpy(v, device=device) for k, v in tree.items()}
 
 
 def caches_to_numpy(caches: dict) -> dict:
     """Decode caches as numpy leaves, in the reference's layout."""
-    return {k: _to_numpy(v) for k, v in caches.items()}
+    return {k: caches_to_numpy(v) if isinstance(v, dict) else _to_numpy(v)
+            for k, v in caches.items()}

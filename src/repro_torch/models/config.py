@@ -1,9 +1,9 @@
 """Model configuration: the port's copy of `repro.models.config`.
 
 The fields and `smoke()` are the reference's, so a configuration means
-the same model in both packages. The port runs the `dense` and `moe`
-families; the other families' fields are kept so that configurations
-stay one type.
+the same model in both packages. The port runs the `dense`, `moe`,
+`ssm` and `hybrid` families; the other families' fields are kept so
+that configurations stay one type.
 """
 from __future__ import annotations
 
@@ -69,6 +69,18 @@ class ModelConfig:
     def padded_vocab(self) -> int:
         return pad_vocab(self.vocab)
 
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
+
+    @property
+    def is_attention_free(self) -> bool:
+        return self.family == "ssm"
+
     def smoke(self) -> "ModelConfig":
         """Reduced same-family config for CPU smoke tests (the
         reference's `smoke()`, field for field)."""
@@ -90,14 +102,17 @@ class ModelConfig:
         )
 
 
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
+
+
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for a configuration this port does not run yet: every
-    family but `dense` and `moe`, M-RoPE and LayerNorm (they come with
+    """Raise for a configuration this port does not run yet: the
+    `encdec` and `vlm` families, M-RoPE and LayerNorm (they come with
     the slices of ROADMAP Queue A's LM remainder)."""
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet (a later "
-            "slice of the port, ROADMAP Queue A); 'dense' and 'moe' run")
+            f"slice of the port, ROADMAP Queue A); {FAMILIES} run")
     if cfg.mrope:
         raise NotImplementedError(f"{cfg.name}: M-RoPE comes with the vlm "
                                   "slice")

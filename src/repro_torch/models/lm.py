@@ -1,7 +1,11 @@
-"""Model assembly for the dense and moe families: parameters, forward,
-full logits, prefill, decode caches and the one-token decode step (port
-of `repro.models.lm`). A moe block holds `moe` (`models/moe.py`) where a
-dense block holds `mlp`; everything else is shared.
+"""Model assembly for the dense, moe, ssm and hybrid families:
+parameters, forward, full logits, prefill, decode caches and the
+one-token decode step (port of `repro.models.lm`). A moe block holds
+`moe` (`models/moe.py`) where a dense block holds `mlp`; an ssm block
+is a norm and a Mamba-2 mixer (`models/ssm.py`). The hybrid family
+(Zamba2) is a stack of ssm blocks plus ONE attention block, `shared`,
+applied after every `shared_attn_every`-th of them; each application
+keeps its own KV cache (the `shared` stack of the caches).
 
 The reference stacks layer weights on a leading L axis and drives them
 with `lax.scan`; here the layers are an `nn.ModuleList` looped in
@@ -21,6 +25,7 @@ from torch import nn
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as ATT
+from repro_torch.models import ssm as SSM
 from repro_torch.models.config import check_supported
 from repro_torch.models.layers import MLP, Norm, apply_norm
 from repro_torch.models.moe import MoE, moe_ffn
@@ -38,10 +43,19 @@ class Block(nn.Module):
             self.mlp = MLP(cfg, device, dtype)
 
 
+class SSMBlock(nn.Module):
+    def __init__(self, cfg, device, dtype):
+        super().__init__()
+        self.ln1 = Norm(cfg.d_model, device, dtype)
+        self.mixer = SSM.Mamba2(cfg, device, dtype)
+
+
 class LM(nn.Module):
     """Parameters of a decoder: `embed` (Vp, d), `layers`, `final_norm`,
-    `lm_head` (an `nn.Linear`, weight (Vp, d)). Every parameter is in
-    the model dtype but a moe block's router, which is f32."""
+    `lm_head` (an `nn.Linear`, weight (Vp, d)), and for the hybrid
+    family `shared`, its one attention block. Every parameter is in the
+    model dtype but a moe block's router and a Mamba-2 mixer's `A_log`,
+    `dt_bias` and `D`, which are f32."""
 
     def __init__(self, cfg, device):
         super().__init__()
@@ -50,8 +64,11 @@ class LM(nn.Module):
         vp, d = cfg.padded_vocab, cfg.d_model
         self.embed = nn.Parameter(torch.empty(vp, d, device=device,
                                               dtype=dtype))
-        self.layers = nn.ModuleList(Block(cfg, device, dtype)
+        block = SSMBlock if cfg.family in ("ssm", "hybrid") else Block
+        self.layers = nn.ModuleList(block(cfg, device, dtype)
                                     for _ in range(cfg.n_layers))
+        if cfg.family == "hybrid":
+            self.shared = Block(cfg, device, dtype)
         self.final_norm = Norm(d, device, dtype)
         self.lm_head = nn.Linear(d, vp, bias=False, device=device,
                                  dtype=dtype)
@@ -61,25 +78,37 @@ class LM(nn.Module):
         return self.embed.device
 
 
+# parameters set to a constant, by leaf name: norms (`w`, a mixer's
+# `out_norm`) 1, biases 0, a mixer's skip `D` 1
+CONSTANT = {"w": 1.0, "bias": 0.0, "conv_b": 0.0, "dt_bias": 0.0,
+            "D": 1.0, "out_norm": 1.0}
+
+
 def init_params(cfg, generator: torch.Generator | int, device=None) -> LM:
     """Random weights with the reference's scales (normal; embeddings
-    x0.02, projections x d_in^-0.5; norms 1, biases 0), drawn from an
+    x0.02, projections x d_in^-0.5, a mixer's conv_w x K^-0.5; `CONSTANT`
+    leaves; a mixer's A_log = log(linspace(1, 16, H))), drawn from an
     explicit generator (a seed makes one on the device). The numbers are
     not the reference's: its `jax.random` draws differ. d_in is an
-    `nn.Linear` weight's last dimension; a moe tensor is stored for
-    `x @ W`, (.., d_in, d_out), so its d_in is the one before."""
+    `nn.Linear` weight's last dimension; a moe or mixer tensor is stored
+    for `x @ W`, (.., d_in, d_out), so its d_in is the one before (for
+    conv_w (K, Ch), K)."""
     device = resolve_device(device)
     if isinstance(generator, int):
         generator = torch.Generator(device).manual_seed(generator)
     with torch.no_grad():
         model = LM(cfg, device)
         for name, t in model.named_parameters():
-            if name.endswith(".w") or name.endswith(".bias"):
-                t.fill_(1.0 if name.endswith(".w") else 0.0)
-                continue
-            t.normal_(generator=generator)
-            d_in = t.shape[-2] if ".moe." in name else t.shape[-1]
-            t.mul_(0.02 if name == "embed" else d_in ** -0.5)
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf in CONSTANT:
+                t.fill_(CONSTANT[leaf])
+            elif leaf == "A_log":
+                t.copy_(torch.log(torch.linspace(1.0, 16.0, t.numel())))
+            else:
+                t.normal_(generator=generator)
+                stored_for_x_at_w = ".moe." in name or ".mixer." in name
+                d_in = t.shape[-2] if stored_for_x_at_w else t.shape[-1]
+                t.mul_(0.02 if name == "embed" else d_in ** -0.5)
     return model.requires_grad_(False)
 
 
@@ -117,21 +146,76 @@ def _block_fwd(cfg, lp: Block, x, positions):
     return x, aux, k, v
 
 
+def n_attention(cfg) -> int:
+    """Attention calls a decode step makes, each on its own slot of the
+    stacked KV cache: one a layer (dense, moe), one an application of
+    the shared block (hybrid: max(1, L // every)), none (ssm)."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return max(1, cfg.n_layers // cfg.shared_attn_every)
+    return cfg.n_layers
+
+
+def kv_stack(cfg, caches: dict) -> dict | None:
+    """The stacked KV cache (dense k/v or the tiered leaves, leading axis
+    `n_attention(cfg)`) inside a family's caches: the caches themselves
+    (dense, moe), their `shared` dict (hybrid), None (ssm)."""
+    if cfg.family == "ssm":
+        return None
+    return caches["shared"] if cfg.family == "hybrid" else caches
+
+
+def with_kv_stack(cfg, caches: dict, stack: dict) -> dict:
+    """`caches` with its stacked KV cache replaced by `stack`."""
+    if cfg.family == "hybrid":
+        return dict(caches, shared=stack)
+    return dict(caches, **stack)
+
+
+def _is_application(cfg, li: int) -> bool:
+    """Whether the hybrid's shared block runs after ssm block `li`."""
+    every = cfg.shared_attn_every
+    return cfg.family == "hybrid" and li % every == every - 1
+
+
 def _stack(cfg, model: LM, batch: dict, caches: dict | None):
     """The layers over `batch["tokens"]` -> (hidden after the final norm,
-    aux summed over the layers); with `caches`, each layer's k and v
-    land in caches["k"][i] and caches["v"][i]."""
+    aux summed over the layers); with dense `caches` of the prompt's
+    length, each attention's k and v land in its slot of the stacked KV
+    cache
+    and each ssm layer's decode state in caches["ssm"][i] and
+    caches["conv"][i]."""
     tokens = torch.as_tensor(batch["tokens"], device=model.device)
     b, s = tokens.shape
     positions = _positions(batch, b, s, model.device)
     x = _embed(cfg, model, tokens)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i, lp in enumerate(model.layers):
+    stack = None if caches is None else kv_stack(cfg, caches)
+
+    def attend(lp, x, j):
         x, a, k, v = _block_fwd(cfg, lp, x, positions)
-        if a is not None:
-            aux = aux + a
-        if caches is not None:
-            caches["k"][i], caches["v"][i] = k, v
+        if stack is not None:
+            stack["k"][j], stack["v"][j] = k, v
+        return x, a
+
+    for i, lp in enumerate(model.layers):
+        if isinstance(lp, SSMBlock):
+            h = apply_norm(cfg, lp.ln1, x)
+            if caches is None:
+                x = x + SSM.mamba2_forward(cfg, lp.mixer, h)
+            else:
+                y, st = SSM.mamba2_prefill(cfg, lp.mixer, h)
+                x = x + y
+                caches["ssm"][i], caches["conv"][i] = st["ssm"], st["conv"]
+            if _is_application(cfg, i):
+                # the shared block's K/V only where it runs (the reference
+                # computes them after every layer and keeps these)
+                x, _ = attend(model.shared, x, i // cfg.shared_attn_every)
+        else:
+            x, a = attend(lp, x, i)
+            if a is not None:
+                aux = aux + a
     return apply_norm(cfg, model.final_norm, x), aux
 
 
@@ -143,16 +227,15 @@ def forward(cfg, model: LM, batch: dict):
 
 @torch.no_grad()
 def forward_collect(cfg, model: LM, batch: dict):
-    """Prefill: -> (hidden (B, S, d), dense caches {"k", "v"
-    (L, B, S, KV, hd), "pos" (B,)}) ready for `decode_step`."""
+    """Prefill: -> (hidden (B, S, d), dense caches ready for
+    `decode_step`: {"k", "v" (L, B, S, KV, hd)} for dense and moe,
+    {"ssm" (L, B, H, P, N) f32, "conv" (L, B, K-1, Ch)} for ssm, and
+    both for hybrid with the K/V under "shared" (one slot an
+    application); and "pos" (B,))."""
     b, s = torch.as_tensor(batch["tokens"]).shape
-    dt = getattr(torch, cfg.dtype)
-    shape = (cfg.n_layers, b, s, cfg.n_kv, cfg.hd)
-    caches = {"k": torch.empty(shape, dtype=dt, device=model.device)}
-    caches["v"] = torch.empty_like(caches["k"])
+    caches = init_decode_caches(cfg, b, s, "dense", model.device)
     hidden, _ = _stack(cfg, model, batch, caches)
-    caches["pos"] = torch.full((b,), s, dtype=torch.int32,
-                               device=model.device)
+    caches["pos"].fill_(s)
     return hidden, caches
 
 
@@ -173,20 +256,31 @@ def logits_full(cfg, model: LM, batch: dict) -> torch.Tensor:
 
 def init_decode_caches(cfg, batch: int, max_len: int, kind: str = "dense",
                        device=None) -> dict:
-    """Zeroed decode state, stacked over layers. kind: dense | lsm."""
+    """Zeroed decode state. kind: dense | lsm. The stacked KV cache
+    (`kv_stack`) has n_attention(cfg) slots; ssm and hybrid add each
+    layer's `ssm` (f32) and `conv` state. An ssm model has no KV cache
+    and takes either kind, as in the reference."""
     check_supported(cfg)
+    if kind not in ("dense", "lsm"):
+        raise ValueError(f"cache kind {kind!r}: dense | lsm")
     device = resolve_device(device)
     dt = getattr(torch, cfg.dtype)
-    if kind == "lsm":
+    out = {}
+    if cfg.family in ("ssm", "hybrid"):
         out = {k: torch.zeros((cfg.n_layers,) + s, dtype=d, device=device)
-               for k, (s, d) in ATT.lsm_cache_shapes(cfg, batch,
-                                                     max_len).items()}
-    elif kind == "dense":
-        shape = (cfg.n_layers, batch, max_len, cfg.n_kv, cfg.hd)
-        out = {"k": torch.zeros(shape, dtype=dt, device=device),
-               "v": torch.zeros(shape, dtype=dt, device=device)}
-    else:
-        raise ValueError(f"cache kind {kind!r}: dense | lsm")
+               for k, (s, d) in SSM.mamba2_decode_state_shapes(
+                   cfg, batch).items()}
+    if cfg.family != "ssm":
+        n = n_attention(cfg)
+        if kind == "lsm":
+            stack = {k: torch.zeros((n,) + s, dtype=d, device=device)
+                     for k, (s, d) in ATT.lsm_cache_shapes(cfg, batch,
+                                                           max_len).items()}
+        else:
+            shape = (n, batch, max_len, cfg.n_kv, cfg.hd)
+            stack = {"k": torch.zeros(shape, dtype=dt, device=device),
+                     "v": torch.zeros(shape, dtype=dt, device=device)}
+        out = with_kv_stack(cfg, out, stack)
     out["pos"] = torch.zeros((batch,), dtype=torch.int32, device=device)
     return out
 
@@ -195,40 +289,45 @@ def init_decode_caches(cfg, batch: int, max_len: int, kind: str = "dense",
 def decode_step(cfg, model: LM, token: torch.Tensor, caches: dict,
                 kind: str = "dense"):
     """token (B,) int -> (logits (B, vocab), caches). The cache tensors
-    are updated in place; the returned dict holds the new counters."""
+    are updated in place; the returned dict holds the new counters. Each
+    attention call writes its slot of the stacked KV cache at a position
+    read to the host once a step."""
+    if kind not in ("dense", "lsm"):
+        raise ValueError(f"cache kind {kind!r}: dense | lsm")
     pos = caches["pos"]
     x = _embed(cfg, model, torch.as_tensor(token, device=model.device))
     x = x[:, None, :]                                       # (B, 1, d)
-    if kind == "lsm":
-        x, caches = _decode_lsm_stack(cfg, model, x, caches)
-    elif kind == "dense":
-        x, caches = _decode_dense_stack(cfg, model, x, caches)
-    else:
-        raise ValueError(f"cache kind {kind!r}: dense | lsm")
+    stack = kv_stack(cfg, caches)
+    if stack is not None:
+        where = (stack["hot_len"][:, 0].tolist() if kind == "lsm"
+                 else [int(pos[0])] * n_attention(cfg))
+    hot_len = []
+
+    def attend(lp, x, j):
+        """Attention block `lp` on slot j of the stacked KV cache."""
+        h = apply_norm(cfg, lp.ln1, x)
+        if kind == "lsm":
+            lcache = {k: stack[k][j] for k in ATT.LSM_KEYS}
+            a, lcache = ATT.lsm_decode_self_attention(cfg, lp.attn, h,
+                                                      lcache, pos, where[j])
+            hot_len.append(lcache["hot_len"])
+        else:
+            a = ATT.decode_self_attention(cfg, lp.attn, h, stack["k"][j],
+                                          stack["v"][j], pos, where[j])
+        return _ffn_residual(cfg, lp, x + a)[0]
+
+    for i, lp in enumerate(model.layers):
+        if isinstance(lp, SSMBlock):
+            state = {"ssm": caches["ssm"][i], "conv": caches["conv"][i]}
+            x = x + SSM.mamba2_decode(cfg, lp.mixer,
+                                      apply_norm(cfg, lp.ln1, x), state)
+            if _is_application(cfg, i):
+                x = attend(model.shared, x, i // cfg.shared_attn_every)
+        else:
+            x = attend(lp, x, i)
+    if hot_len:
+        caches = with_kv_stack(cfg, caches,
+                               dict(stack, hot_len=torch.stack(hot_len)))
     x = apply_norm(cfg, model.final_norm, x)
     logits = model.lm_head(x[:, 0, :])[..., :cfg.vocab]
     return logits, dict(caches, pos=pos + 1)
-
-
-def _decode_dense_stack(cfg, model: LM, x, caches):
-    pos = caches["pos"]
-    at = int(pos[0])                 # the uniform write position (host)
-    for i, lp in enumerate(model.layers):
-        x = x + ATT.decode_self_attention(
-            cfg, lp.attn, apply_norm(cfg, lp.ln1, x), caches["k"][i],
-            caches["v"][i], pos, at)
-        x, _ = _ffn_residual(cfg, lp, x)
-    return x, caches
-
-
-def _decode_lsm_stack(cfg, model: LM, x, caches):
-    pos = caches["pos"]
-    slots = caches["hot_len"][:, 0].tolist()   # each layer's write slot
-    hot_len = []
-    for i, lp in enumerate(model.layers):
-        lcache = {k: caches[k][i] for k in ATT.LSM_KEYS}
-        a, lcache = ATT.lsm_decode_self_attention(
-            cfg, lp.attn, apply_norm(cfg, lp.ln1, x), lcache, pos, slots[i])
-        hot_len.append(lcache["hot_len"])
-        x, _ = _ffn_residual(cfg, lp, x + a)
-    return x, dict(caches, hot_len=torch.stack(hot_len))

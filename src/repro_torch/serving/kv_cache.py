@@ -1,7 +1,8 @@
 """sLSM-tiered KV cache management (the paper's write path, for tokens):
 the port of `repro.serving.kv_cache`.
 
-Lifecycle per layer:
+Lifecycle per attention (a layer; for the hybrid family, an application
+of its shared block):
   * decode appends K/V to the *hot window* (the memory buffer);
   * when the hot window fills, `seal_hot_block` moves its oldest `mu`
     tokens into an immutable cold block plus a summary vector (run seal
@@ -22,14 +23,44 @@ import torch
 from repro_torch.models import lm
 
 
+def _no_kv_cache(cfg) -> ValueError:
+    return ValueError(f"{cfg.name}: an attention-free ({cfg.family}) model "
+                      "has no KV cache to tier; use kind='dense'")
+
+
+def _kv_stack(cfg, caches: dict) -> dict:
+    """The stacked K/V a family tiers (`lm.kv_stack`): the layers' for
+    dense and moe, the shared block's applications for hybrid. An ssm
+    model has none: ValueError."""
+    stack = lm.kv_stack(cfg, caches)
+    if stack is None:
+        raise _no_kv_cache(cfg)
+    return stack
+
+
+def _carry_state(cfg, dense_caches: dict, max_len: int, kind: str) -> dict:
+    """Zeroed decode caches of `kind` for the prefill's batch, with the
+    prefill's `pos` and, for the ssm and hybrid families, copies of its
+    per-layer decode state (decode updates it in place, so each layout
+    made from one prefill gets its own)."""
+    pos = dense_caches["pos"]
+    out = lm.init_decode_caches(cfg, pos.shape[0], max_len, kind,
+                                device=pos.device)
+    for key in ("ssm", "conv", "pos"):
+        if key in out:
+            out[key] = dense_caches[key].clone()
+    return out
+
+
 def seal_hot_block(cfg, caches: dict) -> dict:
-    """Seal the oldest mu hot tokens of every (layer, batch row) into its
-    cold block slot n_blocks (stacked (L, B, ...) leaves; hot_len and
-    n_blocks are (L, B))."""
+    """Seal the oldest mu hot tokens of every (stack slot, batch row)
+    into its cold block slot n_blocks. The stack is the family's tiered
+    K/V (`_kv_stack`): leaves (N, B, ...), hot_len and n_blocks (N, B)."""
     mu = cfg.lsm_block
-    hot_k, hot_v = caches["hot_k"], caches["hot_v"]
-    blk_k, blk_v, summ = caches["blk_k"], caches["blk_v"], caches["summ"]
-    n_blocks = caches["n_blocks"]
+    stack = _kv_stack(cfg, caches)
+    hot_k, hot_v = stack["hot_k"], stack["hot_v"]
+    blk_k, blk_v, summ = stack["blk_k"], stack["blk_v"], stack["summ"]
+    n_blocks = stack["n_blocks"]
     if int(n_blocks.max()) >= blk_k.shape[2]:
         raise IndexError(f"no free cold block slot ({blk_k.shape[2]} "
                          "blocks): size the cache for a longer max_len")
@@ -37,7 +68,7 @@ def seal_hot_block(cfg, caches: dict) -> dict:
     li = torch.arange(n_l, device=n_blocks.device)[:, None]
     bi = torch.arange(b, device=n_blocks.device)[None, :]
     slot = n_blocks.long()
-    new_k, new_v = hot_k[:, :, :mu], hot_v[:, :, :mu]      # (L, B, mu, ..)
+    new_k, new_v = hot_k[:, :, :mu], hot_v[:, :, :mu]      # (N, B, mu, ..)
     blk_k[li, bi, slot] = new_k
     blk_v[li, bi, slot] = new_v
     summ[li, bi, slot] = new_k.float().mean(dim=2).to(summ.dtype)
@@ -45,15 +76,18 @@ def seal_hot_block(cfg, caches: dict) -> dict:
     for hot in (hot_k, hot_v):
         hot[:, :, :w - mu] = hot[:, :, mu:].clone()
         hot[:, :, w - mu:] = 0
-    return dict(caches, hot_len=caches["hot_len"] - mu,
-                n_blocks=n_blocks + 1)
+    return lm.with_kv_stack(cfg, caches, dict(
+        stack, hot_len=stack["hot_len"] - mu, n_blocks=n_blocks + 1))
 
 
 def lsm_from_dense(cfg, dense_caches: dict, max_len: int) -> dict:
     """Prefill (dense) caches -> the tiered layout: full mu-token
-    prefixes become cold blocks; the rest lands in the hot window."""
+    prefixes of the stacked K/V (`_kv_stack`) become cold blocks; the
+    rest lands in the hot window. The ssm and hybrid families' decode
+    state is carried over (copied)."""
     mu, w = cfg.lsm_block, cfg.lsm_hot_window
-    k, v = dense_caches["k"], dense_caches["v"]             # (L, B, S, ..)
+    dense = _kv_stack(cfg, dense_caches)
+    k, v = dense["k"], dense["v"]                           # (N, B, S, ..)
     n_l, b, s, kv, hd = k.shape
     n_cold = max(0, s - 1) // mu                            # keep >=1 hot
     hot_start = n_cold * mu
@@ -61,8 +95,8 @@ def lsm_from_dense(cfg, dense_caches: dict, max_len: int) -> dict:
     if hot_used > w:
         raise ValueError(f"{hot_used} prompt tokens left for a hot window "
                          f"of {w}")
-    out = lm.init_decode_caches(cfg, b, max_len, kind="lsm",
-                                device=k.device)
+    caches = _carry_state(cfg, dense_caches, max_len, "lsm")
+    out = lm.kv_stack(cfg, caches)
     if n_cold > out["blk_k"].shape[2]:
         raise ValueError(f"{n_cold} cold blocks for {out['blk_k'].shape[2]}"
                          " slots: raise max_len")
@@ -77,18 +111,20 @@ def lsm_from_dense(cfg, dense_caches: dict, max_len: int) -> dict:
     out["hot_v"][:, :, :hot_used] = v[:, :, hot_start:s]
     out["hot_len"].fill_(hot_used)
     out["n_blocks"].fill_(n_cold)
-    out["pos"] = dense_caches["pos"].clone()
-    return out
+    return caches
 
 
 def grow_dense(cfg, caches: dict, max_len: int) -> dict:
-    """Prefill (dense) caches grown to max_len positions for decode."""
-    b, s = caches["k"].shape[1:3]
-    grown = lm.init_decode_caches(cfg, b, max_len, kind="dense",
-                                  device=caches["k"].device)
-    grown["k"][:, :, :s] = caches["k"]
-    grown["v"][:, :, :s] = caches["v"]
-    grown["pos"] = caches["pos"].clone()
+    """Prefill (dense) caches grown to max_len positions for decode: the
+    stacked K/V (the shared block's too, which the reference's `generate`
+    leaves at the prompt's length) padded with zeros; the ssm and hybrid
+    families' decode state carried over (copied)."""
+    grown = _carry_state(cfg, caches, max_len, "dense")
+    stack = lm.kv_stack(cfg, caches)
+    if stack is not None:
+        s = stack["k"].shape[2]
+        for key in ("k", "v"):
+            lm.kv_stack(cfg, grown)[key][:, :, :s] = stack[key]
     return grown
 
 
@@ -107,13 +143,16 @@ def generate(cfg, model, prompt_batch: dict, steps: int,
              stats: dict | None = None):
     """Greedy generation: prefill, then one `decode_step` a token, with a
     host-decided seal whenever the hot window is full (kind "lsm").
-    Runs where `model` lies. -> (tokens (B, steps), caches).
+    Runs where `model` lies. -> (tokens (B, steps), caches). An ssm
+    model has no KV cache to tier: kind "lsm" raises ValueError.
 
     If `stats` is a dict, it receives `prefill_s` (prefill and cache
     layout) and `decode_s` (the decode loop), each closed by a device
     synchronize, `seals`, and `finite`: whether every logit was finite."""
     b, s = torch.as_tensor(prompt_batch["tokens"]).shape
     max_len = max_len or (s + steps + 8)
+    if kind == "lsm" and cfg.family == "ssm":
+        raise _no_kv_cache(cfg)
     t0 = _now(model.device, stats)
     logits, caches = lm.prefill_step(cfg, model, prompt_batch)
     if kind == "lsm":
@@ -131,8 +170,8 @@ def generate(cfg, model, prompt_batch: dict, steps: int,
         if stats is not None:
             finite &= torch.isfinite(logits).all()
         # host-orchestrated seal, like the engine's merges
-        if kind == "lsm" and int(caches["hot_len"][0, 0]) >= \
-                cfg.lsm_hot_window:
+        if kind == "lsm" and int(_kv_stack(cfg, caches)["hot_len"][0, 0]) \
+                >= cfg.lsm_hot_window:
             caches = seal_hot_block(cfg, caches)
             seals += 1
     if stats is not None:

@@ -764,6 +764,48 @@ def test_moe_decode_on_card_matches_cpu(cuda, arch, kind):
 
 
 @pytest.mark.gpu
+def test_hybrid_tiered_decode_on_card_matches_cpu(cuda):
+    """Zamba2 at smoke size, f32: one tiered decode step from the same
+    caches on the card (the kernel, once an application of the shared
+    block, reading the shared stack in place) and on the CPU (the plain
+    version) gives the same logits, ssm and conv states and shared
+    caches within the port's cache tolerance (1e-4)."""
+    import copy
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.serving import lsm_from_dense
+    cfg = get_config("zamba2-1.2b").smoke()
+    model = lm.init_params(cfg, 5, device="cpu")
+    card = copy.deepcopy(model).to(cuda)
+    prompt = torch.randint(0, cfg.vocab, (2, 96),
+                           generator=torch.Generator().manual_seed(6))
+    _, dense = lm.prefill_step(cfg, model, {"tokens": prompt})
+    caches = lsm_from_dense(cfg, dense, 160)
+
+    def to_card(tree):
+        return {k: to_card(t) if isinstance(t, dict) else t.to(cuda)
+                for k, t in tree.items()}
+
+    def close(got, want):
+        for k, w in want.items():
+            if isinstance(w, dict):
+                close(got[k], w)
+            else:
+                torch.testing.assert_close(got[k].cpu(), w, atol=1e-4,
+                                           rtol=1e-4)
+
+    on_card = to_card(caches)
+    tok = prompt[:, -1]
+    lg, caches = lm.decode_step(cfg, model, tok, caches, "lsm")
+    before = KLA.lsm_decode_attention.launches
+    lg_c, on_card = lm.decode_step(cfg, card, tok.to(cuda), on_card, "lsm")
+    torch.cuda.synchronize()
+    assert KLA.lsm_decode_attention.launches - before == lm.n_attention(cfg)
+    close({"logits": lg_c}, {"logits": lg})
+    close(on_card, caches)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("adaptive", [False, True])
 def test_durable_engine_on_card_restores_on_card_and_cpu(cuda, tmp_path,
                                                          adaptive):

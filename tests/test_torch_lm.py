@@ -1,5 +1,6 @@
 """Port parity of the LM serving path (dense and moe families,
-sLSM-tiered decode).
+sLSM-tiered decode; the ssm and hybrid families are in
+`tests/test_torch_ssm.py`).
 
 Every check runs the reference (JAX on the CPU, Pallas in interpret
 mode) and the port (torch on the CPU, where `decode_attention` runs its
@@ -31,14 +32,15 @@ from repro.models import layers as RLY  # noqa: E402
 from repro.models import lm as RLM  # noqa: E402
 from repro.serving import kv_cache as RKV  # noqa: E402
 from repro_torch import convert as CV  # noqa: E402
-from repro_torch.configs import LATER, all_arch_ids, get_config  # noqa: E402
+from repro_torch.configs import (DENSE_ARCHS, LATER, MOE_ARCHS,  # noqa: E402
+                                 get_config)
 from repro_torch.kernels.lsm_attention import ops as TKO  # noqa: E402
 from repro_torch.models import attention as TATT  # noqa: E402
 from repro_torch.models import layers as TLY  # noqa: E402
 from repro_torch.models import lm as TLM  # noqa: E402
 from repro_torch.serving import kv_cache as TKV  # noqa: E402
 
-ARCHS = all_arch_ids()
+ARCHS = [a.replace("_", "-") for a in DENSE_ARCHS + MOE_ARCHS]
 PROMPT, STEPS = 96, 64          # smoke: W=64, mu=16, topk=2 -> seals
 TOL = {"float32": dict(atol=1e-5, rtol=1e-4),
        "bfloat16": dict(atol=1e-4, rtol=8e-3)}
