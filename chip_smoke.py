@@ -239,9 +239,40 @@ Phases, in order; any failure raises and exits non-zero:
              f32 copy of the weights (hybrid_agree f32): tiered vs dense
              rel L2 <= 1e-3 at every step, and the masked-block control's
              logits must exceed 1e-3.
+  vlm_kernel — the attention kernel at Qwen2-VL-7B's tiered shape (28
+             heads, kv 4, head dim 128: a query group of 7, seven passes
+             of one head), the tiered bf16 case of lsm_kernel with its
+             planted faults; the record joins lsm_attention's cases.
+  vlm_serve — Qwen2-VL-7B at full width and depth (bf16, seeded random
+             weights, ~7.6 B parameters; text `positions3`, three equal
+             M-RoPE streams), as lm_serve: 2 x 24,576-token prompts, 32
+             new tokens, exactly 28 x 31 = 868 kernel launches, all in
+             place, 23 cold blocks and 1,055 hot tokens; then lm_seal.
+  vlm_agree — the same model as lm_agree (2 x 8,192-token prompts):
+             tiered (RoPE) vs dense (M-RoPE, equal streams) logits rel L2
+             <= 2e-2 or 3x that step's dense floor if that is more, layer
+             0 at the kernel tolerance, the masked-block control.
+  encdec_kernel — the attention kernel by lengths at Whisper-tiny's two
+             decode shapes (6 heads, kv 6, head dim 64: a group of 1):
+             the decoder's self-attention cache (456 positions, lengths
+             224 and 448) and its cross-attention over the 1,500 encoder
+             positions, bf16, with the planted fault, timings and bound.
+  encdec_serve — Whisper-tiny at full width and depth (bf16, seeded
+             random weights, seeded frames (2, 1500, 384) in bf16):
+             `generate(kind="dense")` for 2 x 8-token prompts and 440 new
+             tokens (the 448-position table filled), exactly 8 kernel
+             launches a step (4 self-attention, 4 cross-attention),
+             finite logits, tokens in range; `generate(kind="lsm")` must
+             raise ValueError; then teacher-forced: prefill 8 tokens,
+             decode the next 440 given ones, each step's logits against
+             `forward` over all 448 at rel L2 <= 2e-2 (or 3x that step's
+             bf16 floor if that is more), and on an f32 copy at rel L2
+             <= 1e-3; decode ms a step, the encoder's ms, a decode
+             window's device-busy share.
              The kernel's launches are counted by path (lm_serve,
              lm_agree, moe_serve, moe_agree, hybrid_serve, hybrid_agree,
-             hybrid_agree_f32).
+             hybrid_agree_f32, vlm_serve, vlm_agree, encdec_serve). Each
+             phase's seconds are printed (`phase <name>: <s> s`).
 
 The last two lines of standard output are the kernels' JSON record and
 the device record; nothing of JAX or of the reference package is used.
@@ -273,6 +304,9 @@ MOE_SERVE_ARCH = "granite-moe-1b-a400m"  # full width and depth
 MOE_AGREE_ARCH = "qwen3-moe-30b-a3b"     # full width and depth, ~60.1 GB
 SSM_ARCH = "mamba2-370m"        # full width and depth, no KV cache
 HYBRID_ARCH = "zamba2-1.2b"     # full width and depth, 6 shared-block caches
+VLM_ARCH = "qwen2-vl-7b"        # full width and depth, ~15.2 GB in bf16
+ENCDEC_ARCH = "whisper-tiny"    # full width and depth
+ENCDEC_PROMPT, ENCDEC_STEPS = 8, 440     # fills the 448 learned positions
 SSM_PROMPT = 16_384             # 64 SSD chunks of 256
 SSM_CHECK_STEPS = 16            # teacher-forced steps after S - 256 tokens
 F32_LIMIT = 1e-3                # f32 rel L2 of two decodes' logits
@@ -290,6 +324,16 @@ ADAPTIVE_N = 1_000_000          # writes of the adaptive phase's stream
 
 def log(*parts) -> None:
     print(*parts, flush=True)
+
+
+@contextlib.contextmanager
+def phase(name: str):
+    """Logs the seconds the phase `name` took, on its own line."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
 
 
 def bound_ms(n_bytes: float) -> float:
@@ -3532,9 +3576,10 @@ def moe_kernel_phase(device, seed: int) -> list:
     return recs
 
 
-def lsm_kernel_cases(device, seed: int, cfg, which) -> list:
+def lsm_kernel_cases(device, seed: int, cfg, which, dense=None) -> list:
     """One record a (case, dtype) of `which` at `cfg`'s decode shapes
-    (batch 2); see `lsm_kernel_phase`."""
+    (batch 2); see `lsm_kernel_phase`. `dense` = (L, (length of row 0,
+    of row 1)) sets the dense case's cache, by default lm_agree's."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.lsm_attention import ops as KLA
@@ -3548,12 +3593,12 @@ def lsm_kernel_cases(device, seed: int, cfg, which) -> list:
         dt = getattr(torch, dtype)
         faults = {}
         if name == "dense":
-            length = AGREE_PROMPT + 2 * AGREE_STEPS
+            length, lens = dense or (AGREE_PROMPT + 2 * AGREE_STEPS,
+                                     (AGREE_PROMPT + 1, AGREE_PROMPT + 5))
             q, k, v = (torch.randn(s, generator=gen, device=device).to(dt)
                        for s in ((b, h, dh), (b, length, kv, dh),
                                  (b, length, kv, dh)))
-            lens = torch.tensor([AGREE_PROMPT + 1, AGREE_PROMPT + 5],
-                                dtype=torch.int32, device=device)
+            lens = torch.tensor(lens, dtype=torch.int32, device=device)
             for r in range(b):
                 k[r, int(lens[r]):] = float("nan")
                 v[r, int(lens[r]):] = float("nan")
@@ -3664,6 +3709,17 @@ def lsm_kernel_cases(device, seed: int, cfg, which) -> list:
     return cases
 
 
+def prompt_batch(cfg, tokens) -> dict:
+    """A text prompt's batch: with M-RoPE, its three position streams,
+    all equal to the token's index (3, B, S)."""
+    import torch
+    batch = {"tokens": tokens}
+    if cfg.mrope:
+        b, s = tokens.shape
+        batch["positions3"] = torch.arange(s).expand(3, b, s)
+    return batch
+
+
 def lm_serve_phase(device, seed: int, counters: dict, cfg=None):
     """`generate(kind="lsm")` at full width (Phi-4-mini unless `cfg` is
     given): 2 requests x 24,576-token prompts, 32 new tokens; the kernel
@@ -3686,8 +3742,8 @@ def lm_serve_phase(device, seed: int, counters: dict, cfg=None):
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
     stats = {}
-    toks, caches = generate(cfg, model, {"tokens": prompt}, SERVE_STEPS,
-                            "lsm", stats=stats)
+    toks, caches = generate(cfg, model, prompt_batch(cfg, prompt),
+                            SERVE_STEPS, "lsm", stats=stats)
     launches = {k: fn.launches for k, fn in counters.items()}
     tiered = KLA.lsm_decode_attention.launches
     peak = torch.cuda.max_memory_allocated()
@@ -3948,7 +4004,7 @@ def lm_agree_phase(cfg, model, seed: int):
 
     gen = torch.Generator().manual_seed(seed + 8)
     prompt = torch.randint(0, cfg.vocab, (2, AGREE_PROMPT), generator=gen)
-    logits, dense = lm.prefill_step(cfg, model, {"tokens": prompt})
+    logits, dense = lm.prefill_step(cfg, model, prompt_batch(cfg, prompt))
     max_len = AGREE_PROMPT + 2 * AGREE_STEPS
     tiered = lsm_from_dense(cfg, dense, max_len)
     dense = grow_dense(cfg, dense, max_len)
@@ -4046,7 +4102,7 @@ def lm_agree_phase(cfg, model, seed: int):
     window = decode_window(cfg, model, tiered, tok) if moe else {}
     if cfg.dtype == "float32":
         limits = [F32_LIMIT] * len(errs)
-    elif cfg.family == "hybrid":
+    elif cfg.family in ("hybrid", "vlm"):
         limits = [max(AGREE_LIMIT, FLOOR_X * f) for f in floor_errs]
     else:
         limits = [AGREE_LIMIT] * len(errs)
@@ -4065,7 +4121,8 @@ def lm_agree_phase(cfg, model, seed: int):
     return dict(arch=cfg.name, prompt=AGREE_PROMPT, steps=AGREE_STEPS,
                 n_blocks=n_blk, launches=launches,
                 max_rel_l2=max(errs), rel_l2=errs,
-                limit=limits if cfg.family == "hybrid" else limits[0],
+                limit=limits if cfg.family in ("hybrid", "vlm")
+                else limits[0],
                 plain_vs_kernel_dense_rel_l2=floor_errs,
                 layer0_max_abs_err=l0_errs,
                 layer0_mean_abs_out=float(d0.float().abs().mean()),
@@ -4126,34 +4183,33 @@ def hybrid_kernel_phase(device, seed: int) -> list:
     return recs
 
 
-def ssm_teacher_forced(cfg, model, prompt) -> dict:
-    """Prefill S - 256 tokens, decode the next SSM_CHECK_STEPS given
-    tokens, and hold each step's logits (and the prefill's last) against
-    `forward` over all S tokens at the same position: the chunked SSD
-    against the recurrent state decode. The bf16 floor is the bf16
-    forward against an f32 forward of the same weights at those
-    positions; a step's limit is AGREE_LIMIT, or FLOOR_X times its
-    floor if that is more. With random weights through 48 layers that
-    floor is ~0.3, so the sharp check is the same one in f32, whose
-    floor is the segsum's f32 rounding alone, held to F32_LIMIT."""
+def teacher_forced(cfg, model, batch: dict, cut: int, steps: int) -> dict:
+    """Prefill the first `cut` tokens of `batch`, decode the next `steps`
+    given tokens, and hold each step's logits (and the prefill's last)
+    against `forward` over the whole batch at the same position. The
+    bf16 floor is the bf16 forward against an f32 forward of the same
+    weights (and inputs) at those positions; a step's limit is
+    AGREE_LIMIT, or FLOOR_X times its floor if that is more. The sharp
+    check is the same one on an f32 copy, held to F32_LIMIT."""
     import copy
     import torch
     from repro_torch.models import lm
     from repro_torch.serving import grow_dense
 
-    s = prompt.shape[1]
-    cut = s - 256
-    at = torch.arange(cut - 1, cut + SSM_CHECK_STEPS)     # logits' positions
+    s = batch["tokens"].shape[1]
+    at = torch.arange(cut - 1, cut + steps)             # logits' positions
 
     def head(m, hidden):
         return m.lm_head(hidden[:, at.to(hidden.device)])[..., :cfg.vocab]
 
-    def decoded(c, m):
-        lg, caches = lm.prefill_step(c, m, {"tokens": prompt[:, :cut]})
+    def decoded(c, m, b):
+        lg, caches = lm.prefill_step(c, m, dict(b, tokens=b["tokens"][:,
+                                                                      :cut]))
         caches = grow_dense(c, caches, s)
         out = [lg]
-        for i in range(SSM_CHECK_STEPS):
-            lg, caches = lm.decode_step(c, m, prompt[:, cut + i], caches)
+        for i in range(steps):
+            lg, caches = lm.decode_step(c, m, b["tokens"][:, cut + i],
+                                        caches)
             out.append(lg)
         return torch.stack(out, dim=1)
 
@@ -4161,12 +4217,14 @@ def ssm_teacher_forced(cfg, model, prompt) -> dict:
         return [rel_l2(got[:, i], want[:, i]) for i in range(got.shape[1])]
 
     with torch.no_grad():
-        full = head(model, lm.forward(cfg, model, {"tokens": prompt})[0])
-        dec = decoded(cfg, model)
+        full = head(model, lm.forward(cfg, model, batch)[0])
+        dec = decoded(cfg, model, batch)
         c32 = dataclasses.replace(cfg, dtype="float32")
         m32 = copy.deepcopy(model).float()
-        full32 = head(m32, lm.forward(c32, m32, {"tokens": prompt})[0])
-        dec32 = decoded(c32, m32)
+        b32 = {k: t.float() if t.is_floating_point() else t
+               for k, t in batch.items()}
+        full32 = head(m32, lm.forward(c32, m32, b32)[0])
+        dec32 = decoded(c32, m32, b32)
     if not bool(torch.isfinite(dec).all() & torch.isfinite(full).all()):
         raise AssertionError(f"{cfg.name} teacher-forced: a logit is not "
                              "finite")
@@ -4179,10 +4237,11 @@ def ssm_teacher_forced(cfg, model, prompt) -> dict:
                              f"rel L2 {bf16} over {limits} (bf16 floor "
                              f"{floor}), or in f32 {f32} over "
                              f"{F32_LIMIT}")
-    return dict(check_prefill=cut, check_steps=SSM_CHECK_STEPS,
+    return dict(check_prefill=cut, check_steps=steps,
                 decode_vs_forward_rel_l2=bf16, max_rel_l2=max(bf16),
                 bf16_floor_rel_l2=floor, limit=limits,
-                f32_decode_vs_forward_rel_l2=f32, f32_limit=F32_LIMIT)
+                f32_decode_vs_forward_rel_l2=f32,
+                f32_max_rel_l2=max(f32), f32_limit=F32_LIMIT)
 
 
 def ssm_serve_phase(device, seed: int, counters: dict) -> dict:
@@ -4192,7 +4251,7 @@ def ssm_serve_phase(device, seed: int, counters: dict) -> dict:
     new tokens. It launches no hand-written kernel: the SSD and the
     decode step are plain PyTorch, as the reference's are plain jnp, and
     the counters, set to 0 just before `generate`, must stay 0. Then
-    `ssm_teacher_forced`; decode ms a step, prefill s, a decode window's
+    `teacher_forced`; decode ms a step, prefill s, a decode window's
     device-busy share, peak memory from before the weights are made."""
     import torch
     from repro_torch.configs import get_config
@@ -4237,7 +4296,10 @@ def ssm_serve_phase(device, seed: int, counters: dict) -> dict:
         "state decode, as the reference's plain jnp)")
     rec.update(decode_window(cfg, model, caches, toks[:, -1]))
     del caches, params
-    rec.update(ssm_teacher_forced(cfg, model, prompt))
+    # the chunked SSD against the recurrent state decode: prefill S - 256
+    # tokens (a multiple of the SSD's chunk), SSM_CHECK_STEPS decoded
+    rec.update(teacher_forced(cfg, model, {"tokens": prompt},
+                              SSM_PROMPT - 256, SSM_CHECK_STEPS))
     rec.update(max_memory_allocated=torch.cuda.max_memory_allocated(),
                phase_s=time.perf_counter() - t0)
     del model
@@ -4283,6 +4345,150 @@ def hybrid_phases(device, seed: int, counters: dict) -> tuple:
                    phase_s=time.perf_counter() - t0)
     del m32
     return serve, seal, agree, agree32
+
+
+def vlm_kernel_phase(device, seed: int) -> list:
+    """`vlm_kernel`: `lsm_kernel` at Qwen2-VL-7B's tiered shape: q (2, 28,
+    128), kv 4, a query group of 7 (`per_pass` takes one head: seven
+    passes, each reading every K/V row), the tiered bf16 case of
+    `lsm_kernel_phase` with its planted faults and tolerance."""
+    from repro_torch.configs import get_config
+    recs = lsm_kernel_cases(device, seed, get_config(VLM_ARCH),
+                            (("tiered", "bfloat16"),))
+    for rec in recs:
+        rec["case"] = f"vlm {VLM_ARCH}: {rec['case']}"
+    return recs
+
+
+def vlm_phases(device, seed: int, counters: dict) -> tuple:
+    """`vlm_serve` and `vlm_agree`: Qwen2-VL-7B at full width and depth
+    (bf16, seeded random weights; text `positions3`, three equal M-RoPE
+    streams). `lm_serve_phase`: 2 x 24,576-token prompts, 32 new tokens,
+    exactly 28 x 31 = 868 in-place kernel launches; `lm_seal_phase`;
+    then `lm_agree_phase` at 2 x 8,192 tokens: the dense step applies
+    M-RoPE, the tiered step RoPE (as in the reference), equal for equal
+    streams. Peak memory from before the weights are made."""
+    import torch
+    from repro_torch.configs import get_config
+
+    cfg = get_config(VLM_ARCH)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model, caches, serve = lm_serve_phase(device, seed, counters, cfg)
+    serve["parameters"] = sum(p.numel() for p in model.parameters())
+    seal = lm_seal_phase(cfg, model, caches, seed)
+    serve.update(max_memory_allocated=torch.cuda.max_memory_allocated(),
+                 phase_s=time.perf_counter() - t0)
+    del caches
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    agree = lm_agree_phase(cfg, model, seed)
+    agree.update(max_memory_allocated=torch.cuda.max_memory_allocated(),
+                 phase_s=time.perf_counter() - t0)
+    del model
+    return serve, seal, agree
+
+
+def encdec_kernel_phase(device, seed: int) -> list:
+    """`encdec_kernel`: `lsm_kernel`'s dense case (by lengths) at
+    Whisper-tiny's two decode shapes, q (2, 6, 64), kv 6, a group of 1:
+    the decoder's self-attention cache of `generate` (8 + 440 + 8
+    positions, lengths 224 and 448) and its cross-attention over the
+    encoder's 1,500 positions (lengths 1,500), bf16, with the planted
+    fault and tolerance."""
+    from repro_torch.configs import get_config
+    cfg = get_config(ENCDEC_ARCH)
+    recs = []
+    for what, dense in (
+            ("self", (ENCDEC_PROMPT + ENCDEC_STEPS + 8, (224, 448))),
+            ("cross", (cfg.encoder_seq, (cfg.encoder_seq,) * 2))):
+        for rec in lsm_kernel_cases(device, seed, cfg,
+                                    (("dense", "bfloat16"),), dense):
+            rec["case"] = f"encdec {ENCDEC_ARCH} {what}: {rec['case']}"
+            recs.append(rec)
+    return recs
+
+
+def encdec_serve_phase(device, seed: int, counters: dict) -> dict:
+    """`encdec_serve`: Whisper-tiny at full width and depth (bf16, seeded
+    random weights and frames (2, 1500, 384) in the model dtype).
+    `generate(kind="dense")` for 2 x ENCDEC_PROMPT tokens and
+    ENCDEC_STEPS new ones (the 448 learned positions filled): exactly
+    two kernel launches a decoder layer a step (self- and
+    cross-attention), no tiered one; `generate(kind="lsm")` must raise
+    ValueError (the decoder is never tiered); then `teacher_forced` over
+    the whole 448 tokens; decode ms a step, the encoder's device ms, a
+    decode window's device-busy share, peak memory."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.lsm_attention import ops as KLA
+    from repro_torch.models import lm
+    from repro_torch.serving import generate
+
+    cfg = get_config(ENCDEC_ARCH)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = lm.init_params(cfg, seed, device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    gen = torch.Generator(device).manual_seed(seed + 10)
+    frames = torch.randn((2, cfg.encoder_seq, cfg.d_model), generator=gen,
+                         device=device).to(getattr(torch, cfg.dtype))
+    gen = torch.Generator().manual_seed(seed + 11)
+    tokens = torch.randint(0, cfg.vocab, (2, ENCDEC_PROMPT + ENCDEC_STEPS),
+                           generator=gen)
+    batch = {"tokens": tokens[:, :ENCDEC_PROMPT], "frames": frames}
+    for fn in (*counters.values(), KLA.lsm_decode_attention):
+        fn.launches = 0
+    stats = {}
+    toks, caches = generate(cfg, model, batch, ENCDEC_STEPS, "dense",
+                            stats=stats)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    tiered = KLA.lsm_decode_attention.launches
+    n_steps = ENCDEC_STEPS - 1
+    want = 2 * cfg.n_layers * n_steps
+    if launches["lsm_attention"] != want or tiered:
+        raise AssertionError(f"encdec_serve: lsm_attention launched "
+                             f"{launches['lsm_attention']} times ({tiered} "
+                             f"tiered), expected {want}: a self- and a "
+                             "cross-attention a layer a step")
+    if not stats["finite"]:
+        raise AssertionError(f"{cfg.name} serve: a logit was not finite")
+    if toks.shape != (2, ENCDEC_STEPS) or not (
+            (toks >= 0) & (toks < cfg.vocab)).all():
+        raise AssertionError(f"{cfg.name} serve: bad tokens "
+                             f"{tuple(toks.shape)}")
+    pos = caches["pos"].unique().tolist()
+    if pos != [ENCDEC_PROMPT + n_steps]:
+        raise AssertionError(f"{cfg.name} serve: pos {pos}")
+    try:
+        generate(cfg, model, batch, 2, "lsm")
+    except ValueError as e:
+        lsm_refused = str(e)
+    else:
+        raise AssertionError(f"{cfg.name}: generate(kind='lsm') did not "
+                             "raise")
+    params = list(model.parameters())
+    rec = dict(
+        arch=cfg.name, dtype=cfg.dtype, batch=2, prompt=ENCDEC_PROMPT,
+        new_tokens=ENCDEC_STEPS, frames=list(frames.shape), init_s=init_s,
+        parameters=sum(p.numel() for p in params),
+        prefill_s=stats["prefill_s"],
+        decode_ms_per_step=stats["decode_s"] / n_steps * 1e3,
+        decode_tokens_per_s=2 * n_steps / stats["decode_s"],
+        encoder_ms=device_ms(lambda: lm._encode(cfg, model, frames), 10),
+        encoder_wall_ms=wall_ms(lambda: lm._encode(cfg, model, frames), 10),
+        launches=launches, lsm_refused=lsm_refused)
+    rec.update(decode_window(cfg, model, caches, toks[:, -1]))
+    del caches, params
+    rec.update(teacher_forced(cfg, model, {"tokens": tokens,
+                                           "frames": frames},
+                              ENCDEC_PROMPT, ENCDEC_STEPS))
+    rec.update(max_memory_allocated=torch.cuda.max_memory_allocated(),
+               phase_s=time.perf_counter() - t0)
+    del model
+    return rec
 
 
 # --------------------------------------------------------------------------
@@ -4374,8 +4580,9 @@ def main() -> int:
                 f"registers, {spills} bytes of spill stores")
 
     rng = np.random.default_rng(args.seed)
-    kernels = kernel_phase(paper_params(merge_budget=1, range_cand=512),
-                           device, rng, parent_bloom)
+    with phase("kernels"):
+        kernels = kernel_phase(paper_params(merge_budget=1, range_cand=512),
+                               device, rng, parent_bloom)
 
     counters = {"bloom_probe": KBP.bloom_probe_levels,
                 "fence_lookup": KFL.fence_lookup_many,
@@ -4389,7 +4596,7 @@ def main() -> int:
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
     merges = {}
-    with merge_tally(merges, KHM.kway_merge):
+    with phase("main"), merge_tally(merges, KHM.kway_merge):
         eng, main = main_phase(device, args.seed, args.writes)
     launches = {k: fn.launches for k, fn in counters.items()}
     rounds = {k: fn.launches for k, fn in contract.items()}
@@ -4411,11 +4618,14 @@ def main() -> int:
         raise AssertionError(f"main path: bloom_probe launched "
                              f"{launches['bloom_probe']} times for "
                              f"{batches} lookup batches")
-    for flow, rec in profile_phase(eng, args.seed).items():
+    with phase("profile"):
+        flows = profile_phase(eng, args.seed)
+    for flow, rec in flows.items():
         log(f"profile {flow} [{card}]: " + json.dumps(rec))
     del eng
 
-    cascade = cascade_phase(device, args.seed)
+    with phase("cascade"):
+        cascade = cascade_phase(device, args.seed)
     log(f"cascade [{card}]: " + json.dumps(cascade))
     torch.cuda.empty_cache()
 
@@ -4426,40 +4636,50 @@ def main() -> int:
                for path in ("adaptive", "tape", "tape scaled", "durable",
                             "sharded", "replicated leader",
                             "replicated followers", "replica kill")}
-    eng, oracle, adaptive, pool = adaptive_phase(
-        device, args.seed, ADAPTIVE_N, tallies["adaptive"])
+    with phase("adaptive"):
+        eng, oracle, adaptive, pool = adaptive_phase(
+            device, args.seed, ADAPTIVE_N, tallies["adaptive"])
     log(f"adaptive [{card}]: " + json.dumps(adaptive))
-    flows, extra = adaptive_profile(eng, args.seed)
+    with phase("adaptive profile"):
+        flows, extra = adaptive_profile(eng, args.seed)
     oracle.insert(*extra)
     for flow, rec in flows.items():
         log(f"adaptive profile {flow} [{card}]: " + json.dumps(rec))
-    tape = tape_phase(args.seed, eng, oracle, pool, TAPE_WINDOWS,
-                      tallies["tape"])
+    with phase("tape"):
+        tape = tape_phase(args.seed, eng, oracle, pool, TAPE_WINDOWS,
+                          tallies["tape"])
     log(f"tape [{card}]: " + json.dumps(tape))
     del eng, oracle
     torch.cuda.empty_cache()
-    tape = tape_scaled_phase(device, args.seed, SCALED_WINDOWS,
-                             tallies["tape scaled"])
+    with phase("tape scaled"):
+        tape = tape_scaled_phase(device, args.seed, SCALED_WINDOWS,
+                                 tallies["tape scaled"])
     log(f"tape scaled [{card}]: " + json.dumps(tape))
-    durable = durable_phase(device, args.seed, DURABLE_INSERTS,
-                            tallies["durable"])
+    with phase("durable"):
+        durable = durable_phase(device, args.seed, DURABLE_INSERTS,
+                                tallies["durable"])
     log(f"durable [{card}]: " + json.dumps(durable))
-    killed = killed_writer_phase(device, args.seed)
+    with phase("killed writer"):
+        killed = killed_writer_phase(device, args.seed)
     log(f"killed writer [{card}]: " + json.dumps(killed))
     torch.cuda.empty_cache()
-    sharded, sharded_cases = sharded_phase(device, args.seed,
-                                           tallies["sharded"])
+    with phase("sharded"):
+        sharded, sharded_cases = sharded_phase(device, args.seed,
+                                               tallies["sharded"])
     log(f"sharded [{card}]: " + json.dumps(sharded))
     for rec in kernels:
         rec["cases"].append(sharded_cases[rec["name"]])
-    cascade = sharded_cascade_phase(device, args.seed)
+    with phase("sharded cascade"):
+        cascade = sharded_cascade_phase(device, args.seed)
     log(f"sharded cascade [{card}]: " + json.dumps(cascade))
     torch.cuda.empty_cache()
-    replicated = replicated_phase(device, args.seed, {
-        "leader": tallies["replicated leader"],
-        "followers": tallies["replicated followers"]})
+    with phase("replicated"):
+        replicated = replicated_phase(device, args.seed, {
+            "leader": tallies["replicated leader"],
+            "followers": tallies["replicated followers"]})
     log(f"replicated [{card}]: " + json.dumps(replicated))
-    killed = replica_kill_phase(device, args.seed, tallies["replica kill"])
+    with phase("replica kill"):
+        killed = replica_kill_phase(device, args.seed, tallies["replica kill"])
     log(f"replica kill [{card}]: " + json.dumps(killed))
     by_path = {"main": launches}
     for path, tally in tallies.items():
@@ -4472,37 +4692,63 @@ def main() -> int:
             raise AssertionError(f"{path} path: never launched {missing}, "
                                  f"rounds {tally.rounds}")
 
-    lsm_rec = lsm_kernel_phase(device, args.seed)
-    model, caches, serve = lm_serve_phase(device, args.seed, counters)
+    with phase("lsm_kernel"):
+        lsm_rec = lsm_kernel_phase(device, args.seed)
+    with phase("lm_serve"):
+        model, caches, serve = lm_serve_phase(device, args.seed, counters)
     log(f"lm_serve [{card}]: " + json.dumps(serve))
-    seal = lm_seal_phase(lm_config(), model, caches, args.seed)
+    with phase("lm_seal"):
+        seal = lm_seal_phase(lm_config(), model, caches, args.seed)
     log(f"lm_seal [{card}]: " + json.dumps(seal))
     del caches
     torch.cuda.empty_cache()
-    agree = lm_agree_phase(lm_config(), model, args.seed)
+    with phase("lm_agree"):
+        agree = lm_agree_phase(lm_config(), model, args.seed)
     log(f"lm_agree [{card}]: " + json.dumps(agree))
     del model
     torch.cuda.empty_cache()
 
-    moe_cases = moe_kernel_phase(device, args.seed)
-    moe_serve = moe_serve_phase(device, args.seed, counters)
+    with phase("moe_kernel"):
+        moe_cases = moe_kernel_phase(device, args.seed)
+    with phase("moe_serve"):
+        moe_serve = moe_serve_phase(device, args.seed, counters)
     log(f"moe_serve [{card}]: " + json.dumps(moe_serve))
     torch.cuda.empty_cache()
-    moe_agree = moe_agree_phase(device, args.seed)
+    with phase("moe_agree"):
+        moe_agree = moe_agree_phase(device, args.seed)
     log(f"moe_agree [{card}]: " + json.dumps(moe_agree))
     torch.cuda.empty_cache()
 
-    hybrid_cases = hybrid_kernel_phase(device, args.seed)
-    ssm_serve = ssm_serve_phase(device, args.seed, counters)
+    with phase("hybrid_kernel"):
+        hybrid_cases = hybrid_kernel_phase(device, args.seed)
+    with phase("ssm_serve"):
+        ssm_serve = ssm_serve_phase(device, args.seed, counters)
     log(f"ssm_serve [{card}] (launches no kernel): "
         + json.dumps(ssm_serve))
     torch.cuda.empty_cache()
-    hybrid_serve, hybrid_seal, hybrid_agree, hybrid_f32 = hybrid_phases(
-        device, args.seed, counters)
+    with phase("hybrid_serve, hybrid_seal, hybrid_agree"):
+        hybrid_serve, hybrid_seal, hybrid_agree, hybrid_f32 = hybrid_phases(
+            device, args.seed, counters)
     log(f"hybrid_serve [{card}]: " + json.dumps(hybrid_serve))
     log(f"hybrid_seal [{card}]: " + json.dumps(hybrid_seal))
     log(f"hybrid_agree [{card}]: " + json.dumps(hybrid_agree))
     log(f"hybrid_agree f32 [{card}]: " + json.dumps(hybrid_f32))
+    torch.cuda.empty_cache()
+
+    with phase("vlm_kernel"):
+        vlm_cases = vlm_kernel_phase(device, args.seed)
+    with phase("vlm_serve, vlm_seal, vlm_agree"):
+        vlm_serve, vlm_seal, vlm_agree = vlm_phases(device, args.seed,
+                                                    counters)
+    log(f"vlm_serve [{card}]: " + json.dumps(vlm_serve))
+    log(f"vlm_seal [{card}]: " + json.dumps(vlm_seal))
+    log(f"vlm_agree [{card}]: " + json.dumps(vlm_agree))
+    torch.cuda.empty_cache()
+    with phase("encdec_kernel"):
+        encdec_cases = encdec_kernel_phase(device, args.seed)
+    with phase("encdec_serve"):
+        encdec_serve = encdec_serve_phase(device, args.seed, counters)
+    log(f"encdec_serve [{card}]: " + json.dumps(encdec_serve))
     torch.cuda.empty_cache()
 
     for rec in kernels:
@@ -4510,7 +4756,8 @@ def main() -> int:
         rec["launches_by_path"] = {k: v[rec["name"]]
                                    for k, v in by_path.items()}
         rec["card"] = card
-    lsm_rec["cases"].extend(moe_cases + hybrid_cases)
+    lsm_rec["cases"].extend(moe_cases + hybrid_cases + vlm_cases
+                            + encdec_cases)
     lsm_rec.update(launches=serve["launches"]["lsm_attention"],
                    launches_by_path={
                        "lm_serve": serve["launches"]["lsm_attention"],
@@ -4520,7 +4767,11 @@ def main() -> int:
                        "hybrid_serve":
                            hybrid_serve["launches"]["lsm_attention"],
                        "hybrid_agree": hybrid_agree["launches"],
-                       "hybrid_agree_f32": hybrid_f32["launches"]},
+                       "hybrid_agree_f32": hybrid_f32["launches"],
+                       "vlm_serve": vlm_serve["launches"]["lsm_attention"],
+                       "vlm_agree": vlm_agree["launches"],
+                       "encdec_serve":
+                           encdec_serve["launches"]["lsm_attention"]},
                    card=card)
     kernels.append(lsm_rec)
     print(json.dumps({"kernels": kernels}))

@@ -1,10 +1,8 @@
 """Configurations: the engine's paper baseline (`slsm_paper`) and the LM
 registry (`get_config`), the port's copy of `repro.configs`.
 
-The registry holds the configurations of the families the port runs,
-`dense`, `moe`, `ssm` and `hybrid`. The reference's other assigned
-architectures are known by id; asking for one raises
-`NotImplementedError` naming the slice that will add it.
+The registry holds every architecture the reference registers, of the
+families `dense`, `moe`, `ssm`, `hybrid`, `encdec` and `vlm`.
 """
 from __future__ import annotations
 
@@ -14,13 +12,10 @@ DENSE_ARCHS = ["phi4_mini_3_8b", "qwen1_5_4b", "deepseek_7b", "gemma_7b"]
 MOE_ARCHS = ["granite_moe_1b_a400m", "qwen3_moe_30b_a3b"]
 SSM_ARCHS = ["mamba2_370m"]
 HYBRID_ARCHS = ["zamba2_1_2b"]
-ARCHS = DENSE_ARCHS + MOE_ARCHS + SSM_ARCHS + HYBRID_ARCHS
-
-# the reference's other assigned architectures -> the port slice adding them
-LATER = {
-    "qwen2-vl-7b": "vlm (M-RoPE)",
-    "whisper-tiny": "encdec",
-}
+ENCDEC_ARCHS = ["whisper_tiny"]
+VLM_ARCHS = ["qwen2_vl_7b"]
+ARCHS = (DENSE_ARCHS + MOE_ARCHS + SSM_ARCHS + HYBRID_ARCHS + ENCDEC_ARCHS
+         + VLM_ARCHS)
 
 ALIASES = {a.replace("_", "-"): a for a in ARCHS}
 ALIASES.update({"phi4-mini-3.8b": "phi4_mini_3_8b",
@@ -30,11 +25,6 @@ ALIASES.update({"phi4-mini-3.8b": "phi4_mini_3_8b",
 def get_config(arch: str):
     """The `ModelConfig` of a registered architecture id (hyphens or
     module name)."""
-    if arch in LATER:
-        raise NotImplementedError(
-            f"{arch}: the {LATER[arch]} slice of the port adds it "
-            "(ROADMAP Queue A); the port runs the dense, moe, ssm and hybrid "
-            "families")
     mod_name = ALIASES.get(arch, arch).replace("-", "_").replace(".", "_")
     if mod_name not in ARCHS:
         raise KeyError(f"unknown architecture {arch!r}")

@@ -115,7 +115,10 @@ def state_to_leaves(state: SLSMState) -> list[np.ndarray]:
 # `out_proj`) are plain parameters in the reference's layout
 # (`layers.<i>.moe.w_up` is `layers/moe/w_up[i]`), stacked on L and not
 # transposed. The hybrid family's `shared` attention block is one block,
-# not stacked.
+# not stacked. The encdec family's encoder blocks are stacked as the
+# decoder's are (`enc_layers.<i>.x` is `enc_layers/x[i]`); its decoder
+# blocks add `cross` (an attention) and `ln3`, and its LayerNorms a bias
+# `b`, a plain leaf like `dec_pos` and `enc_norm`'s.
 
 def _from_numpy(a, dtype=None, device="cpu") -> torch.Tensor:
     a = np.array(a)           # a copy: the port writes caches in place
@@ -139,8 +142,8 @@ def _lm_source(name: str):
     transposed)."""
     parts = name.split(".")
     layer = None
-    if parts[0] == "layers":                      # layers.<i>.x -> layers/x[i]
-        layer, parts = int(parts[1]), ["layers"] + parts[2:]
+    if parts[0] in ("layers", "enc_layers"):      # layers.<i>.x -> layers/x[i]
+        layer, parts = int(parts[1]), [parts[0]] + parts[2:]
     *sub, leaf = parts
     if leaf == "bias":                            # attn.wq.bias -> attn.bq
         return (*sub[:-1], "b" + sub[-1][1:]), layer, False
@@ -214,9 +217,9 @@ def lm_params_to_numpy(model) -> dict:
 
 def caches_from_numpy(tree: dict, device=None) -> dict:
     """Decode caches (dense or lsm dict of numpy leaves, the hybrid
-    family's `shared` dict nested) as tensors; dtypes kept (counters
-    int32, K/V and the conv state in the model dtype, the ssm state
-    f32)."""
+    family's `shared` dict nested, the encdec family's `enc_k`/`enc_v`
+    beside `k`/`v`) as tensors; dtypes kept (counters int32, K/V and the
+    conv state in the model dtype, the ssm state f32)."""
     device = resolve_device(device)
     return {k: caches_from_numpy(v, device) if isinstance(v, dict)
             else _from_numpy(v, device=device) for k, v in tree.items()}

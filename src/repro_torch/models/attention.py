@@ -1,14 +1,15 @@
 """GQA attention: chunked-flash prefill, cached decode over a dense cache,
-and decode over the sLSM-tiered cache (port of `repro.models.attention`,
-single-device paths).
+decode over the sLSM-tiered cache, and Whisper's cross-attention (port
+of `repro.models.attention`, single-device paths).
 
-Both decode paths end in one call of the `lsm_attention` kernel
+Every decode path ends in one call of the `lsm_attention` kernel
 (`kernels/lsm_attention`), which the reference left to plain jnp on this
 path: the dense one through `decode_attention_op` (validity from the
 lengths), the tiered one through `lsm_decode_attention`, which reads the
-hot window and the selected cold blocks in place. Prefill attention is
-no kernel in the reference either; here it is a plain chunked mirror of
-its `flash_attention`.
+hot window and the selected cold blocks in place, and a decode step's
+cross-attention through `decode_attention_op` over all T encoder
+positions. Prefill attention is no kernel in the reference either; here
+it is a plain chunked mirror of its `flash_attention`.
 
 Decode writes the new token's K/V into the cache in place (the
 reference returns updated copies) at a position the caller read to the
@@ -22,7 +23,7 @@ import torch
 from torch import nn
 
 from repro_torch.kernels.lsm_attention import ops as KLA
-from repro_torch.models.layers import apply_rope
+from repro_torch.models.layers import apply_mrope, apply_rope
 
 NEG_INF = -1e30
 
@@ -106,19 +107,55 @@ def flash_attention(q, k, v, *, causal: bool, q_chunk: int = 1024,
     return out.transpose(1, 2).to(q.dtype)
 
 
-def self_attention(cfg, p: Attention, x, positions, *, causal: bool = True):
+def self_attention(cfg, p: Attention, x, positions, *, causal: bool = True,
+                   positions3=None):
     """Full-sequence self-attention (prefill) -> (out (B, S, d), the
-    rope'd k and the v (B, S, KV, hd) it attended: what prefill caches,
-    which the reference recomputes from the same inputs)."""
+    rotated k and the v (B, S, KV, hd) it attended: what prefill caches,
+    which the reference recomputes from the same inputs). M-RoPE where
+    the config has it and `positions3` (3, B, S) is given, else RoPE
+    where `positions` is given, else no rotation (Whisper)."""
     q = _project_q(cfg, p, x)
     k, v = _project_kv(cfg, p, x)
-    if positions is not None:
+    if cfg.mrope and positions3 is not None:
+        q = apply_mrope(q, positions3, cfg.rope_theta, cfg.mrope_sections)
+        k = apply_mrope(k, positions3, cfg.rope_theta, cfg.mrope_sections)
+    elif positions is not None:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     out = flash_attention(q, _expand_kv(k, cfg.n_heads),
                           _expand_kv(v, cfg.n_heads), causal=causal)
     b, s = out.shape[:2]
     return p.wo(out.reshape(b, s, -1)), k, v
+
+
+def project_enc_kv(cfg, p: Attention, enc_h):
+    """The encoder's K/V (B, T, KV, hd) for a decoder layer's
+    cross-attention, computed once and cached."""
+    return _project_kv(cfg, p, enc_h)
+
+
+def cross_attention(cfg, p: Attention, x, enc_k, enc_v):
+    """Decoder cross-attention over the cached encoder K/V (B, T, KV, hd),
+    no rotation, the reference's chunks (all of Sq and T up to 1024)."""
+    q = _project_q(cfg, p, x)
+    out = flash_attention(q, _expand_kv(enc_k, cfg.n_heads),
+                          _expand_kv(enc_v, cfg.n_heads), causal=False,
+                          q_chunk=min(1024, q.shape[1]),
+                          k_chunk=min(1024, enc_k.shape[1]))
+    b, s = out.shape[:2]
+    return p.wo(out.reshape(b, s, -1))
+
+
+def decode_cross_attention(cfg, p: Attention, x1, enc_k, enc_v):
+    """One decode token's cross-attention: the reference's
+    `cross_attention` at Sq = 1, here one kernel call over all T encoder
+    positions (lengths T in every row). x1 (B, 1, d); enc_k/v
+    (B, T, KV, hd), a layer's view of the stacked cache."""
+    b, t = enc_k.shape[:2]
+    q = _project_q(cfg, p, x1)[:, 0].to(enc_k.dtype).contiguous()
+    lengths = torch.full((b,), t, dtype=torch.int32, device=q.device)
+    out = KLA.decode_attention_op(q, enc_k, enc_v, lengths, cfg.hd ** -0.5)
+    return p.wo(out.reshape(b, 1, cfg.n_heads * cfg.hd).to(x1.dtype))
 
 
 # --------------------------------------------------------------------------
@@ -140,12 +177,16 @@ def decode_self_attention(cfg, p: Attention, x1, cache_k, cache_v, pos,
                          f"{cache_k.shape[1]}")
     q = _project_q(cfg, p, x1)                             # (B, 1, H, hd)
     k1, v1 = _project_kv(cfg, p, x1)
-    if cfg.rope:
+    if cfg.mrope:               # text decode: three equal streams
+        pos3 = pos[None, :, None].expand(3, b, 1)
+        q = apply_mrope(q, pos3, cfg.rope_theta, cfg.mrope_sections)
+        k1 = apply_mrope(k1, pos3, cfg.rope_theta, cfg.mrope_sections)
+    elif cfg.rope:
         q = apply_rope(q, pos[:, None], cfg.rope_theta)
         k1 = apply_rope(k1, pos[:, None], cfg.rope_theta)
     cache_k[:, at] = k1[:, 0].to(cache_k.dtype)
     cache_v[:, at] = v1[:, 0].to(cache_v.dtype)
-    qg = q[:, 0].to(cache_k.dtype)                         # (B, H, hd)
+    qg = q[:, 0].to(cache_k.dtype).contiguous()            # (B, H, hd)
     out = KLA.decode_attention_op(qg, cache_k, cache_v, pos + 1,
                                   cfg.hd ** -0.5)
     return p.wo(out.reshape(b, 1, cfg.n_heads * cfg.hd).to(x1.dtype))
@@ -184,8 +225,10 @@ def lsm_decode_self_attention(cfg, p: Attention, x1, cache: dict, pos,
     The hot window is the sLSM memory buffer (always searched); cold
     blocks are immutable mu-token runs whose summary vector gates access
     (the Bloom/fence analogue): only the top-k scoring blocks are read.
-    The new K/V lands in hot slot `at` (= hot_len[0], read by the
-    caller) in place. Returns (out (B, 1, d), cache with hot_len + 1).
+    Plain RoPE for every family, M-RoPE's included, as in the reference
+    (for text its three streams are equal). The new K/V lands in hot
+    slot `at` (= hot_len[0], read by the caller) in place. Returns
+    (out (B, 1, d), cache with hot_len + 1).
 
     This is the reference's single-device branch. Its sharded-stats
     branch needs a device mesh, which the port has not; its grouped

@@ -1,9 +1,7 @@
 """Model configuration: the port's copy of `repro.models.config`.
 
 The fields and `smoke()` are the reference's, so a configuration means
-the same model in both packages. The port runs the `dense`, `moe`,
-`ssm` and `hybrid` families; the other families' fields are kept so
-that configurations stay one type.
+the same model in both packages. The port runs all six families.
 """
 from __future__ import annotations
 
@@ -102,22 +100,16 @@ class ModelConfig:
         )
 
 
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for a configuration this port does not run yet: the
-    `encdec` and `vlm` families, M-RoPE and LayerNorm (they come with
-    the slices of ROADMAP Queue A's LM remainder)."""
+    """Raise for a configuration no family of this port runs: an unknown
+    family, activation or norm."""
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet (a later "
-            f"slice of the port, ROADMAP Queue A); {FAMILIES} run")
-    if cfg.mrope:
-        raise NotImplementedError(f"{cfg.name}: M-RoPE comes with the vlm "
-                                  "slice")
-    if cfg.norm != "rmsnorm":
-        raise NotImplementedError(f"{cfg.name}: norm {cfg.norm!r} comes "
-                                  "with the encdec slice")
+            f"{cfg.name}: unknown family {cfg.family!r}; {FAMILIES} run")
     if cfg.act not in ("swiglu", "geglu", "gelu"):
         raise ValueError(f"{cfg.name}: unknown activation {cfg.act!r}")
+    if cfg.norm not in ("rmsnorm", "layernorm"):
+        raise ValueError(f"{cfg.name}: unknown norm {cfg.norm!r}")

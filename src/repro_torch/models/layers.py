@@ -1,5 +1,6 @@
-"""Shared layers: RMSNorm, rotary embeddings (RoPE), gated MLPs — the
-port of `repro.models.layers` (M-RoPE waits for the vlm slice).
+"""Shared layers: RMSNorm and LayerNorm, rotary embeddings (RoPE and
+Qwen2-VL's M-RoPE), gated and plain MLPs — the port of
+`repro.models.layers`.
 
 Layouts follow the reference: activations (..., S, d), heads
 (..., S, H, hd). Weights are `nn.Linear`s, so `x @ W` of the reference
@@ -18,7 +19,19 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w
 
 
+def layernorm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+              eps: float) -> torch.Tensor:
+    """f32 mean and population variance (`jnp.var`); the normalised
+    value is cast back before the affine, as in the reference."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = xf.var(-1, keepdim=True, unbiased=False)
+    return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype) * w + b
+
+
 def apply_norm(cfg, norm: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    if cfg.norm == "layernorm":
+        return layernorm(x, norm.w, norm.b, cfg.norm_eps)
     return rmsnorm(x, norm.w, cfg.norm_eps)
 
 
@@ -41,10 +54,39 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
+                sections: tuple[int, ...]) -> torch.Tensor:
+    """Qwen2-VL M-RoPE: the hd/2 frequency lanes split into (t, h, w)
+    sections, each rotated by its own position stream. x (B, S, H, hd);
+    positions3 (3, B, S). With three equal streams it is `apply_rope`
+    bit for bit."""
+    hd = x.shape[-1]
+    assert sum(sections) == hd // 2, (sections, hd)
+    freqs = rope_freqs(hd, theta, x.device)
+    # which position stream drives each frequency lane
+    sec_id = torch.repeat_interleave(
+        torch.arange(len(sections), device=x.device),
+        torch.tensor(sections, device=x.device))
+    pos = positions3[sec_id]                               # (hd/2, B, S)
+    ang = pos.movedim(0, -1).float() * freqs               # (B, S, hd/2)
+    cos = torch.cos(ang)[..., None, :]
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
 class Norm(nn.Module):
-    def __init__(self, d: int, device, dtype):
+    """A norm's weight `w` and, for LayerNorm, its bias `b` (named as the
+    reference's leaf: the converter maps a leaf named `bias` to a
+    projection's `b<name>`)."""
+
+    def __init__(self, cfg, device, dtype):
         super().__init__()
+        d = cfg.d_model
         self.w = nn.Parameter(torch.ones(d, device=device, dtype=dtype))
+        if cfg.norm == "layernorm":
+            self.b = nn.Parameter(torch.zeros(d, device=device, dtype=dtype))
 
 
 class MLP(nn.Module):

@@ -1,11 +1,17 @@
-"""Model assembly for the dense, moe, ssm and hybrid families:
-parameters, forward, full logits, prefill, decode caches and the
-one-token decode step (port of `repro.models.lm`). A moe block holds
-`moe` (`models/moe.py`) where a dense block holds `mlp`; an ssm block
-is a norm and a Mamba-2 mixer (`models/ssm.py`). The hybrid family
-(Zamba2) is a stack of ssm blocks plus ONE attention block, `shared`,
-applied after every `shared_attn_every`-th of them; each application
-keeps its own KV cache (the `shared` stack of the caches).
+"""Model assembly for every family: parameters, forward, full logits,
+prefill, decode caches and the one-token decode step (port of
+`repro.models.lm`). A moe block holds `moe` (`models/moe.py`) where a
+dense block holds `mlp`; an ssm block is a norm and a Mamba-2 mixer
+(`models/ssm.py`). The hybrid family (Zamba2) is a stack of ssm blocks
+plus ONE attention block, `shared`, applied after every
+`shared_attn_every`-th of them; each application keeps its own KV cache
+(the `shared` stack of the caches). The vlm family (Qwen2-VL) is the
+dense stack with M-RoPE over `batch["positions3"]` (3, B, S). The encdec
+family (Whisper) runs a bidirectional encoder (`enc_layers`, ordinary
+blocks) over stubbed frame embeddings `batch["frames"]` (B, T, d), then
+decoder blocks (`DecBlock`) of self-attention, cross-attention over the
+encoder's cached K/V (`enc_k`/`enc_v`) and an MLP, with learned decoder
+positions (`dec_pos`, 448 of them).
 
 The reference stacks layer weights on a leading L axis and drives them
 with `lax.scan`; here the layers are an `nn.ModuleList` looped in
@@ -34,26 +40,40 @@ from repro_torch.models.moe import MoE, moe_ffn
 class Block(nn.Module):
     def __init__(self, cfg, device, dtype):
         super().__init__()
-        self.ln1 = Norm(cfg.d_model, device, dtype)
+        self.ln1 = Norm(cfg, device, dtype)
         self.attn = ATT.Attention(cfg, device, dtype)
-        self.ln2 = Norm(cfg.d_model, device, dtype)
+        self.ln2 = Norm(cfg, device, dtype)
         if cfg.family == "moe":
             self.moe = MoE(cfg, device, dtype)
         else:
             self.mlp = MLP(cfg, device, dtype)
 
 
+class DecBlock(nn.Module):
+    """A Whisper decoder block: self-attention, cross-attention, MLP."""
+
+    def __init__(self, cfg, device, dtype):
+        super().__init__()
+        self.ln1 = Norm(cfg, device, dtype)
+        self.attn = ATT.Attention(cfg, device, dtype)
+        self.ln2 = Norm(cfg, device, dtype)
+        self.cross = ATT.Attention(cfg, device, dtype)
+        self.ln3 = Norm(cfg, device, dtype)
+        self.mlp = MLP(cfg, device, dtype)
+
+
 class SSMBlock(nn.Module):
     def __init__(self, cfg, device, dtype):
         super().__init__()
-        self.ln1 = Norm(cfg.d_model, device, dtype)
+        self.ln1 = Norm(cfg, device, dtype)
         self.mixer = SSM.Mamba2(cfg, device, dtype)
 
 
 class LM(nn.Module):
     """Parameters of a decoder: `embed` (Vp, d), `layers`, `final_norm`,
-    `lm_head` (an `nn.Linear`, weight (Vp, d)), and for the hybrid
-    family `shared`, its one attention block. Every parameter is in the
+    `lm_head` (an `nn.Linear`, weight (Vp, d)); for the hybrid family
+    `shared`, its one attention block; for encdec `enc_layers`,
+    `enc_norm` and `dec_pos` (DEC_POSITIONS, d). Every parameter is in the
     model dtype but a moe block's router and a Mamba-2 mixer's `A_log`,
     `dt_bias` and `D`, which are f32."""
 
@@ -64,12 +84,19 @@ class LM(nn.Module):
         vp, d = cfg.padded_vocab, cfg.d_model
         self.embed = nn.Parameter(torch.empty(vp, d, device=device,
                                               dtype=dtype))
-        block = SSMBlock if cfg.family in ("ssm", "hybrid") else Block
+        block = {"ssm": SSMBlock, "hybrid": SSMBlock,
+                 "encdec": DecBlock}.get(cfg.family, Block)
         self.layers = nn.ModuleList(block(cfg, device, dtype)
                                     for _ in range(cfg.n_layers))
         if cfg.family == "hybrid":
             self.shared = Block(cfg, device, dtype)
-        self.final_norm = Norm(d, device, dtype)
+        if cfg.family == "encdec":
+            self.enc_layers = nn.ModuleList(
+                Block(cfg, device, dtype) for _ in range(cfg.encoder_layers))
+            self.enc_norm = Norm(cfg, device, dtype)
+            self.dec_pos = nn.Parameter(torch.empty(
+                DEC_POSITIONS, d, device=device, dtype=dtype))
+        self.final_norm = Norm(cfg, device, dtype)
         self.lm_head = nn.Linear(d, vp, bias=False, device=device,
                                  dtype=dtype)
 
@@ -79,14 +106,17 @@ class LM(nn.Module):
 
 
 # parameters set to a constant, by leaf name: norms (`w`, a mixer's
-# `out_norm`) 1, biases 0, a mixer's skip `D` 1
-CONSTANT = {"w": 1.0, "bias": 0.0, "conv_b": 0.0, "dt_bias": 0.0,
-            "D": 1.0, "out_norm": 1.0}
+# `out_norm`) 1, biases (a LayerNorm's `b` too) 0, a mixer's skip `D` 1
+CONSTANT = {"w": 1.0, "b": 0.0, "bias": 0.0, "conv_b": 0.0,
+            "dt_bias": 0.0, "D": 1.0, "out_norm": 1.0}
+# normal draws with a scale of their own, by name (others x d_in^-0.5)
+SCALE = {"embed": 0.02, "dec_pos": 0.01}
 
 
 def init_params(cfg, generator: torch.Generator | int, device=None) -> LM:
-    """Random weights with the reference's scales (normal; embeddings
-    x0.02, projections x d_in^-0.5, a mixer's conv_w x K^-0.5; `CONSTANT`
+    """Random weights with the reference's scales (normal; `SCALE`:
+    embeddings x0.02, Whisper's decoder positions x0.01; projections
+    x d_in^-0.5, a mixer's conv_w x K^-0.5; `CONSTANT`
     leaves; a mixer's A_log = log(linspace(1, 16, H))), drawn from an
     explicit generator (a seed makes one on the device). The numbers are
     not the reference's: its `jax.random` draws differ. d_in is an
@@ -108,7 +138,7 @@ def init_params(cfg, generator: torch.Generator | int, device=None) -> LM:
                 t.normal_(generator=generator)
                 stored_for_x_at_w = ".moe." in name or ".mixer." in name
                 d_in = t.shape[-2] if stored_for_x_at_w else t.shape[-1]
-                t.mul_(0.02 if name == "embed" else d_in ** -0.5)
+                t.mul_(SCALE.get(name, d_in ** -0.5))
     return model.requires_grad_(False)
 
 
@@ -127,6 +157,50 @@ def _positions(batch: dict, b: int, s: int, device) -> torch.Tensor:
     return torch.as_tensor(pos, device=device)
 
 
+def _positions3(batch: dict, device) -> torch.Tensor | None:
+    """M-RoPE's (t, h, w) position streams (3, B, S), or None."""
+    pos3 = batch.get("positions3")
+    return None if pos3 is None else torch.as_tensor(pos3, device=device)
+
+
+DEC_POSITIONS = 448             # Whisper's learned decoder positions
+
+
+def _sinusoid(seq: int, d: int, device) -> torch.Tensor:
+    """(seq, d) f32: sines then cosines, the reference's `_sinusoid`."""
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(d // 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / (10000.0 ** (2 * dim / d))
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def _dec_positions(cfg, model: LM, s: int) -> torch.Tensor:
+    """Whisper's learned decoder positions for s tokens (s, d): the table,
+    extended past its DEC_POSITIONS entries by a sinusoid, as the
+    reference's forward does (its decode step clamps to the last entry
+    instead; the port copies both)."""
+    table = model.dec_pos
+    if s <= table.shape[0]:
+        return table[:s]
+    ext = _sinusoid(s - table.shape[0], cfg.d_model, table.device)
+    return torch.cat([table, ext.to(table.dtype)])
+
+
+def _encode(cfg, model: LM, frames) -> torch.Tensor:
+    """Whisper's encoder over stubbed frame embeddings (B, T, d), which
+    must be in the model dtype (an `nn.Linear` takes no other): the
+    sinusoid added, bidirectional blocks, then `enc_norm`."""
+    frames = torch.as_tensor(frames, device=model.device)
+    if frames.dtype != model.embed.dtype:
+        raise TypeError(f"frames in {frames.dtype}; the model's dtype "
+                        f"{model.embed.dtype} expected")
+    t = frames.shape[1]
+    x = frames + _sinusoid(t, cfg.d_model, frames.device).to(frames.dtype)
+    for lp in model.enc_layers:
+        x = _block_fwd(cfg, lp, x, None, causal=False)[0]
+    return apply_norm(cfg, model.enc_norm, x)
+
+
 def _ffn_residual(cfg, lp: Block, x):
     """-> (x + the block's FFN of x, its auxiliary loss: the router's
     load-balancing loss for a moe block, None for a dense one)."""
@@ -137,19 +211,36 @@ def _ffn_residual(cfg, lp: Block, x):
     return x + lp.mlp(h), None
 
 
-def _block_fwd(cfg, lp: Block, x, positions):
+def _block_fwd(cfg, lp: Block, x, positions, positions3=None,
+               causal: bool = True):
     """-> (x after the block, its auxiliary loss or None, the k and v its
     attention cached)."""
     a, k, v = ATT.self_attention(cfg, lp.attn, apply_norm(cfg, lp.ln1, x),
-                                 positions)
+                                 positions, causal=causal,
+                                 positions3=positions3)
     x, aux = _ffn_residual(cfg, lp, x + a)
     return x, aux, k, v
 
 
+def _dec_block_fwd(cfg, lp: DecBlock, x, enc_h):
+    """A Whisper decoder block over the whole sequence -> (x after it,
+    its self-attention's k and v, the encoder K/V of its
+    cross-attention)."""
+    a, k, v = ATT.self_attention(cfg, lp.attn, apply_norm(cfg, lp.ln1, x),
+                                 None)
+    x = x + a
+    h = apply_norm(cfg, lp.ln2, x)
+    ek, ev = ATT.project_enc_kv(cfg, lp.cross, enc_h)
+    x = x + ATT.cross_attention(cfg, lp.cross, h, ek, ev)
+    return x + lp.mlp(apply_norm(cfg, lp.ln3, x)), k, v, ek, ev
+
+
 def n_attention(cfg) -> int:
-    """Attention calls a decode step makes, each on its own slot of the
-    stacked KV cache: one a layer (dense, moe), one an application of
-    the shared block (hybrid: max(1, L // every)), none (ssm)."""
+    """Self-attention calls a decode step makes, each on its own slot of
+    the stacked KV cache: one a layer (dense, moe, vlm; encdec, whose
+    decoder layers each add a cross-attention over the encoder's K/V),
+    one an application of the shared block (hybrid: max(1, L // every)),
+    none (ssm)."""
     if cfg.family == "ssm":
         return 0
     if cfg.family == "hybrid":
@@ -160,7 +251,8 @@ def n_attention(cfg) -> int:
 def kv_stack(cfg, caches: dict) -> dict | None:
     """The stacked KV cache (dense k/v or the tiered leaves, leading axis
     `n_attention(cfg)`) inside a family's caches: the caches themselves
-    (dense, moe), their `shared` dict (hybrid), None (ssm)."""
+    (dense, moe, vlm, encdec), their `shared` dict (hybrid), None
+    (ssm)."""
     if cfg.family == "ssm":
         return None
     return caches["shared"] if cfg.family == "hybrid" else caches
@@ -183,18 +275,22 @@ def _stack(cfg, model: LM, batch: dict, caches: dict | None):
     """The layers over `batch["tokens"]` -> (hidden after the final norm,
     aux summed over the layers); with dense `caches` of the prompt's
     length, each attention's k and v land in its slot of the stacked KV
-    cache
-    and each ssm layer's decode state in caches["ssm"][i] and
-    caches["conv"][i]."""
+    cache, each ssm layer's decode state in caches["ssm"][i] and
+    caches["conv"][i], and each decoder layer's encoder K/V in
+    caches["enc_k"][i] and caches["enc_v"][i]."""
     tokens = torch.as_tensor(batch["tokens"], device=model.device)
     b, s = tokens.shape
     positions = _positions(batch, b, s, model.device)
+    positions3 = _positions3(batch, model.device)
     x = _embed(cfg, model, tokens)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     stack = None if caches is None else kv_stack(cfg, caches)
+    if cfg.family == "encdec":
+        enc_h = _encode(cfg, model, batch["frames"])
+        x = x + _dec_positions(cfg, model, s)
 
     def attend(lp, x, j):
-        x, a, k, v = _block_fwd(cfg, lp, x, positions)
+        x, a, k, v = _block_fwd(cfg, lp, x, positions, positions3)
         if stack is not None:
             stack["k"][j], stack["v"][j] = k, v
         return x, a
@@ -212,6 +308,11 @@ def _stack(cfg, model: LM, batch: dict, caches: dict | None):
                 # the shared block's K/V only where it runs (the reference
                 # computes them after every layer and keeps these)
                 x, _ = attend(model.shared, x, i // cfg.shared_attn_every)
+        elif isinstance(lp, DecBlock):
+            x, k, v, ek, ev = _dec_block_fwd(cfg, lp, x, enc_h)
+            if caches is not None:
+                stack["k"][i], stack["v"][i] = k, v
+                caches["enc_k"][i], caches["enc_v"][i] = ek, ev
         else:
             x, a = attend(lp, x, i)
             if a is not None:
@@ -228,12 +329,14 @@ def forward(cfg, model: LM, batch: dict):
 @torch.no_grad()
 def forward_collect(cfg, model: LM, batch: dict):
     """Prefill: -> (hidden (B, S, d), dense caches ready for
-    `decode_step`: {"k", "v" (L, B, S, KV, hd)} for dense and moe,
+    `decode_step`: {"k", "v" (L, B, S, KV, hd)} for dense, moe and vlm,
+    and for encdec with "enc_k", "enc_v" (L, B, T, KV, hd) beside them;
     {"ssm" (L, B, H, P, N) f32, "conv" (L, B, K-1, Ch)} for ssm, and
     both for hybrid with the K/V under "shared" (one slot an
     application); and "pos" (B,))."""
     b, s = torch.as_tensor(batch["tokens"]).shape
-    caches = init_decode_caches(cfg, b, s, "dense", model.device)
+    t = batch["frames"].shape[1] if cfg.family == "encdec" else None
+    caches = init_decode_caches(cfg, b, s, "dense", model.device, enc_len=t)
     hidden, _ = _stack(cfg, model, batch, caches)
     caches["pos"].fill_(s)
     return hidden, caches
@@ -255,11 +358,15 @@ def logits_full(cfg, model: LM, batch: dict) -> torch.Tensor:
 
 
 def init_decode_caches(cfg, batch: int, max_len: int, kind: str = "dense",
-                       device=None) -> dict:
+                       device=None, enc_len: int | None = None) -> dict:
     """Zeroed decode state. kind: dense | lsm. The stacked KV cache
     (`kv_stack`) has n_attention(cfg) slots; ssm and hybrid add each
-    layer's `ssm` (f32) and `conv` state. An ssm model has no KV cache
-    and takes either kind, as in the reference."""
+    layer's `ssm` (f32) and `conv` state, encdec each decoder layer's
+    encoder K/V `enc_k`/`enc_v` of `enc_len` positions (cfg.encoder_seq
+    unless given). An ssm model has no KV cache and takes either kind,
+    as in the reference; an encdec model's dense layout is its only one
+    (its decoder is bounded at DEC_POSITIONS), for either kind, as in
+    the reference."""
     check_supported(cfg)
     if kind not in ("dense", "lsm"):
         raise ValueError(f"cache kind {kind!r}: dense | lsm")
@@ -270,9 +377,14 @@ def init_decode_caches(cfg, batch: int, max_len: int, kind: str = "dense",
         out = {k: torch.zeros((cfg.n_layers,) + s, dtype=d, device=device)
                for k, (s, d) in SSM.mamba2_decode_state_shapes(
                    cfg, batch).items()}
+    if cfg.family == "encdec":
+        shape = (cfg.n_layers, batch, enc_len or cfg.encoder_seq, cfg.n_kv,
+                 cfg.hd)
+        out = {k: torch.zeros(shape, dtype=dt, device=device)
+               for k in ("enc_k", "enc_v")}
     if cfg.family != "ssm":
         n = n_attention(cfg)
-        if kind == "lsm":
+        if kind == "lsm" and cfg.family != "encdec":
             stack = {k: torch.zeros((n,) + s, dtype=d, device=device)
                      for k, (s, d) in ATT.lsm_cache_shapes(cfg, batch,
                                                            max_len).items()}
@@ -291,12 +403,17 @@ def decode_step(cfg, model: LM, token: torch.Tensor, caches: dict,
     """token (B,) int -> (logits (B, vocab), caches). The cache tensors
     are updated in place; the returned dict holds the new counters. Each
     attention call writes its slot of the stacked KV cache at a position
-    read to the host once a step."""
+    read to the host once a step. An encdec model decodes its dense
+    layout whatever `kind` says, as the reference does."""
     if kind not in ("dense", "lsm"):
         raise ValueError(f"cache kind {kind!r}: dense | lsm")
     pos = caches["pos"]
     x = _embed(cfg, model, torch.as_tensor(token, device=model.device))
     x = x[:, None, :]                                       # (B, 1, d)
+    if cfg.family == "encdec":   # one layout; past the table its last entry
+        kind = "dense"
+        table = model.dec_pos
+        x = x + table[pos.clamp(max=table.shape[0] - 1).long()][:, None, :]
     stack = kv_stack(cfg, caches)
     if stack is not None:
         where = (stack["hot_len"][:, 0].tolist() if kind == "lsm"
@@ -323,6 +440,14 @@ def decode_step(cfg, model: LM, token: torch.Tensor, caches: dict,
                                       apply_norm(cfg, lp.ln1, x), state)
             if _is_application(cfg, i):
                 x = attend(model.shared, x, i // cfg.shared_attn_every)
+        elif isinstance(lp, DecBlock):
+            x = x + ATT.decode_self_attention(
+                cfg, lp.attn, apply_norm(cfg, lp.ln1, x), stack["k"][i],
+                stack["v"][i], pos, where[i])
+            x = x + ATT.decode_cross_attention(
+                cfg, lp.cross, apply_norm(cfg, lp.ln2, x), caches["enc_k"][i],
+                caches["enc_v"][i])
+            x = x + lp.mlp(apply_norm(cfg, lp.ln3, x))
         else:
             x = attend(lp, x, i)
     if hot_len:

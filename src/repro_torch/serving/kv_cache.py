@@ -24,16 +24,20 @@ from repro_torch.models import lm
 
 
 def _no_kv_cache(cfg) -> ValueError:
+    if cfg.family == "encdec":
+        return ValueError(f"{cfg.name}: the decoder is bounded at "
+                          f"{lm.DEC_POSITIONS} positions, so its KV cache "
+                          "is never tiered; use kind='dense'")
     return ValueError(f"{cfg.name}: an attention-free ({cfg.family}) model "
                       "has no KV cache to tier; use kind='dense'")
 
 
 def _kv_stack(cfg, caches: dict) -> dict:
     """The stacked K/V a family tiers (`lm.kv_stack`): the layers' for
-    dense and moe, the shared block's applications for hybrid. An ssm
-    model has none: ValueError."""
+    dense, moe and vlm, the shared block's applications for hybrid. An
+    ssm model has none, an encdec model's is never tiered: ValueError."""
     stack = lm.kv_stack(cfg, caches)
-    if stack is None:
+    if stack is None or cfg.family == "encdec":
         raise _no_kv_cache(cfg)
     return stack
 
@@ -42,13 +46,19 @@ def _carry_state(cfg, dense_caches: dict, max_len: int, kind: str) -> dict:
     """Zeroed decode caches of `kind` for the prefill's batch, with the
     prefill's `pos` and, for the ssm and hybrid families, copies of its
     per-layer decode state (decode updates it in place, so each layout
-    made from one prefill gets its own)."""
+    made from one prefill gets its own); the encdec family's encoder
+    K/V carried as they are (decode only reads them)."""
     pos = dense_caches["pos"]
+    enc = dense_caches.get("enc_k")
     out = lm.init_decode_caches(cfg, pos.shape[0], max_len, kind,
-                                device=pos.device)
+                                device=pos.device,
+                                enc_len=None if enc is None else enc.shape[2])
     for key in ("ssm", "conv", "pos"):
         if key in out:
             out[key] = dense_caches[key].clone()
+    for key in ("enc_k", "enc_v"):
+        if key in out:
+            out[key] = dense_caches[key]
     return out
 
 
@@ -144,14 +154,16 @@ def generate(cfg, model, prompt_batch: dict, steps: int,
     """Greedy generation: prefill, then one `decode_step` a token, with a
     host-decided seal whenever the hot window is full (kind "lsm").
     Runs where `model` lies. -> (tokens (B, steps), caches). An ssm
-    model has no KV cache to tier: kind "lsm" raises ValueError.
+    model has no KV cache to tier, an encdec model's decoder is bounded
+    at 448 positions: kind "lsm" raises ValueError for both (the
+    reference raises KeyError for both).
 
     If `stats` is a dict, it receives `prefill_s` (prefill and cache
     layout) and `decode_s` (the decode loop), each closed by a device
     synchronize, `seals`, and `finite`: whether every logit was finite."""
     b, s = torch.as_tensor(prompt_batch["tokens"]).shape
     max_len = max_len or (s + steps + 8)
-    if kind == "lsm" and cfg.family == "ssm":
+    if kind == "lsm" and cfg.family in ("ssm", "encdec"):
         raise _no_kv_cache(cfg)
     t0 = _now(model.device, stats)
     logits, caches = lm.prefill_step(cfg, model, prompt_batch)

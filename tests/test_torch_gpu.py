@@ -603,7 +603,7 @@ def _fails(bad, want, dtype):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("dh", [64, 128, 256])
-@pytest.mark.parametrize("group", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("group", [1, 2, 3, 4, 7, 8])
 @pytest.mark.parametrize("case", ["short", "long"])
 def test_lsm_decode_attention_kernel_matches_plain(cuda, case, group, dh,
                                                    dtype):
@@ -666,7 +666,8 @@ def test_lsm_decode_attention_kernel_matches_plain(cuda, case, group, dh,
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("group,dh,length", [(3, 128, 8208), (1, 64, 700),
-                                             (8, 256, 513), (4, 16, 33)])
+                                             (8, 256, 513), (4, 16, 33),
+                                             (7, 128, 8208), (1, 64, 1500)])
 def test_dense_lengths_kernel_matches_plain(cuda, group, dh, length, dtype):
     """The dense path: the kernel reads `lengths` itself (no bitmap);
     rows past a row's length are NaN and must not be read."""
@@ -803,6 +804,51 @@ def test_hybrid_tiered_decode_on_card_matches_cpu(cuda):
     assert KLA.lsm_decode_attention.launches - before == lm.n_attention(cfg)
     close({"logits": lg_c}, {"logits": lg})
     close(on_card, caches)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,kind", [("whisper-tiny", "dense"),
+                                       ("qwen2-vl-7b", "dense"),
+                                       ("qwen2-vl-7b", "lsm")])
+def test_encdec_and_vlm_decode_on_card_match_cpu(cuda, arch, kind):
+    """Whisper and Qwen2-VL at smoke size, f32: one decode step from the
+    same caches on the card (the kernel: a Whisper layer's self- and
+    cross-attention, a Qwen2-VL layer's dense or tiered attention) and on
+    the CPU (the plain version) gives the same logits and caches, then
+    `generate` the same tokens."""
+    import copy
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.serving import generate, grow_dense, lsm_from_dense
+    cfg = get_config(arch).smoke()
+    model = lm.init_params(cfg, 7, device="cpu")
+    card = copy.deepcopy(model).to(cuda)
+    gen = torch.Generator().manual_seed(8)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 96), generator=gen)}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.randn(2, cfg.encoder_seq, cfg.d_model,
+                                      generator=gen)
+    else:
+        batch["positions3"] = torch.arange(96).expand(3, 2, 96)
+    _, dense = lm.prefill_step(cfg, model, batch)
+    caches = (lsm_from_dense(cfg, dense, 160) if kind == "lsm"
+              else grow_dense(cfg, dense, 160))
+    on_card = {k: t.to(cuda) for k, t in caches.items()}
+    tok = batch["tokens"][:, -1]
+    lg, caches = lm.decode_step(cfg, model, tok, caches, kind)
+    before = KLA.decode_attention.launches
+    lg_c, on_card = lm.decode_step(cfg, card, tok.to(cuda), on_card, kind)
+    torch.cuda.synchronize()
+    per_layer = 2 if cfg.family == "encdec" else 1
+    assert KLA.decode_attention.launches - before == per_layer * cfg.n_layers
+    torch.testing.assert_close(lg_c.cpu(), lg, atol=1e-4, rtol=1e-4)
+    for key, want in caches.items():
+        torch.testing.assert_close(on_card[key].cpu(), want, atol=1e-4,
+                                   rtol=1e-4)
+    card_batch = {k: t.to(cuda) for k, t in batch.items()}
+    toks, _ = generate(cfg, model, batch, 48, kind)
+    toks_c, _ = generate(cfg, card, card_batch, 48, kind)
+    assert torch.equal(toks_c.cpu(), toks)
 
 
 @pytest.mark.gpu

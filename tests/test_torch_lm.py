@@ -1,6 +1,7 @@
 """Port parity of the LM serving path (dense and moe families,
 sLSM-tiered decode; the ssm and hybrid families are in
-`tests/test_torch_ssm.py`).
+`tests/test_torch_ssm.py`, encdec in `test_torch_encdec.py`, vlm in
+`test_torch_vlm.py`).
 
 Every check runs the reference (JAX on the CPU, Pallas in interpret
 mode) and the port (torch on the CPU, where `decode_attention` runs its
@@ -22,6 +23,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from repro.configs import all_arch_ids as ref_arch_ids  # noqa: E402
 from repro.configs import get_config as ref_config  # noqa: E402
 from repro.kernels.lsm_attention import ops as RKO  # noqa: E402
 from repro.kernels.lsm_attention.lsm_attention import (  # noqa: E402
@@ -32,8 +34,8 @@ from repro.models import layers as RLY  # noqa: E402
 from repro.models import lm as RLM  # noqa: E402
 from repro.serving import kv_cache as RKV  # noqa: E402
 from repro_torch import convert as CV  # noqa: E402
-from repro_torch.configs import (DENSE_ARCHS, LATER, MOE_ARCHS,  # noqa: E402
-                                 get_config)
+from repro_torch.configs import (DENSE_ARCHS, MOE_ARCHS,  # noqa: E402
+                                 all_arch_ids, get_config)
 from repro_torch.kernels.lsm_attention import ops as TKO  # noqa: E402
 from repro_torch.models import attention as TATT  # noqa: E402
 from repro_torch.models import layers as TLY  # noqa: E402
@@ -199,20 +201,32 @@ def test_tiered_plain_never_reads_invalid_rows(group, dtype, n_blocks, topk):
 # -- layers, prefill attention, configs ---------------------------------------
 
 def test_configs_match_reference():
-    for arch in ARCHS:
+    """Every registered architecture, at full size and at smoke(); the
+    reference's aliases name the same configuration in the port."""
+    for arch in all_arch_ids() + ["whisper-tiny", "qwen2-vl-7b",
+                                  "phi4-mini-3.8b", "qwen1.5-4b"]:
         for f in (lambda c: c, lambda c: c.smoke()):
             assert (dataclasses.asdict(f(get_config(arch)))
                     == dataclasses.asdict(f(ref_config(arch))))
 
 
-@pytest.mark.parametrize("arch", sorted(LATER))
-def test_other_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="slice"):
-        get_config(arch)
-    from repro_torch.models.config import ModelConfig
-    cfg = ModelConfig(**dataclasses.asdict(ref_config(arch).smoke()))
-    with pytest.raises(NotImplementedError):
+def test_all_arch_ids_match_reference():
+    """The port runs every architecture the reference registers."""
+    assert set(all_arch_ids()) == set(ref_arch_ids())
+    assert len(all_arch_ids()) == len(ref_arch_ids())
+
+
+@pytest.mark.parametrize("field,value,error", [
+    ("family", "rnn", NotImplementedError), ("act", "relu", ValueError),
+    ("norm", "batchnorm", ValueError)])
+def test_check_supported_raises_for_an_unknown_family_act_or_norm(
+        field, value, error):
+    cfg = dataclasses.replace(get_config("gemma-7b").smoke(),
+                              **{field: value})
+    with pytest.raises(error, match=value):
         TLM.init_params(cfg, 0, device="cpu")
+    with pytest.raises(error, match=value):
+        TLM.init_decode_caches(cfg, 2, 16, device="cpu")
 
 
 @pytest.mark.parametrize("act", ["swiglu", "geglu", "gelu"])
