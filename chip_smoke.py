@@ -269,6 +269,25 @@ Phases, in order; any failure raises and exits non-zero:
              bf16 floor if that is more), and on an f32 copy at rel L2
              <= 1e-3; decode ms a step, the encoder's ms, a decode
              window's device-busy share.
+  train    — Granite-MoE-1B-A400M at full width and depth (bf16, seeded
+             random weights, ~1.38 B parameters, AdamW's f32 moments):
+             8 steps of `make_train_step(base_lr=1e-3, warmup=2)` on one
+             repeated `TokenStream(seed=0)` batch of 4 x 256 tokens;
+             every loss finite, the last below the first, no counted
+             kernel launched (training runs plain PyTorch, as the
+             reference trains through plain jnp); step ms between CUDA
+             events (the first apart), tokens/s, peak memory, one more
+             step's device-busy share.
+  train_agree — Phi-4-mini at full width, depth cut to 2, f32, TF32 off
+             (~1.43 B parameters): one train step on the card and one on
+             the CPU from the same weights, loss and grad norm within
+             1e-5 relative, every parameter's gradient (the step's first
+             AdamW moment) within 1e-4 relative plus 1e-5 of the leaf's
+             largest, every updated parameter within 2 * lr + 1e-6;
+             accum_steps 4 against 1 on the card at the same bounds; then
+             examples/quickstart_torch.py, long_context_serve_torch.py
+             and train_lm_torch.py as three concurrent subprocesses on
+             the card (their output in build/examples/).
              The kernel's launches are counted by path (lm_serve,
              lm_agree, moe_serve, moe_agree, hybrid_serve, hybrid_agree,
              hybrid_agree_f32, vlm_serve, vlm_agree, encdec_serve). Each
@@ -320,6 +339,18 @@ RANGE_WIDE = 16_384             # scan rows wider than one merge tile
 ADAPTIVE_EPS = (2 ** -6, 1e-3, 2 ** -13)   # k = 6, 10, 13 by level
 ADAPTIVE_DEEP_CUT = 16          # level 2's runs cut to level_cap(2) / 16
 ADAPTIVE_N = 1_000_000          # writes of the adaptive phase's stream
+TRAIN_ARCH = "granite-moe-1b-a400m"     # trained at full width and depth
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 256, 8
+TRAIN_LR, TRAIN_WARMUP = 1e-3, 2
+AGREE_TRAIN_ARCH = "phi4-mini-3.8b"     # full width, depth cut to 2, f32
+AGREE_TRAIN_LAYERS = 2
+AGREE_TRAIN_BATCH, AGREE_TRAIN_SEQ = 4, 64
+TRAIN_REL = 1e-5                # loss and grad norm, card against CPU
+# each parameter's gradient, card against CPU: rtol as the CPU parity
+# tests', atol this share of the leaf's largest |gradient| (f32 sums over
+# widths of 3,072-8,192 in another order, entries left near zero by
+# cancellation carry the error of the leaf's scale)
+GRAD_RTOL, GRAD_ATOL_OF_MAX = 1e-4, 1e-5
 
 
 def log(*parts) -> None:
@@ -4491,6 +4522,245 @@ def encdec_serve_phase(device, seed: int, counters: dict) -> dict:
     return rec
 
 
+def train_phase(device, seed: int, counters: dict, cfg=None) -> dict:
+    """`train`: `make_train_step(base_lr=TRAIN_LR, warmup=TRAIN_WARMUP)`
+    for TRAIN_STEPS steps on one repeated TokenStream(seed=0) batch of
+    TRAIN_BATCH x TRAIN_SEQ tokens, from seeded random weights: every loss
+    finite and the last below the first, no lsm_attention (or engine
+    kernel) launch; step ms between CUDA events (the first step apart),
+    tokens/s, peak memory from before the weights, and one more step's
+    device-busy share."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.models import lm
+    from repro_torch.train import adamw_init, make_train_step
+
+    cfg = cfg or get_config(TRAIN_ARCH)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = lm.init_params(cfg, seed, device)
+    opt = adamw_init(model)
+    step = make_train_step(cfg, base_lr=TRAIN_LR, warmup=TRAIN_WARMUP)
+    batch = next(TokenStream(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ, seed=0))
+    for fn in counters.values():
+        fn.launches = 0
+    events, metrics = [], []
+    for _ in range(TRAIN_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        model, opt, m = step(model, opt, batch)
+        stop.record()
+        events.append((start, stop))
+        metrics.append(m)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    ms = [a.elapsed_time(b) for a, b in events]
+    losses = [float(m["loss"]) for m in metrics]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train: a loss was not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train: the last loss is not below the "
+                             f"first: {losses}")
+    if any(launches.values()):
+        raise AssertionError(f"train: a counted kernel launched: {launches}")
+    steady = sum(ms[1:]) / (len(ms) - 1)
+    rec = dict(arch=cfg.name, dtype=cfg.dtype, batch=TRAIN_BATCH,
+               seq=TRAIN_SEQ, steps=TRAIN_STEPS, base_lr=TRAIN_LR,
+               warmup=TRAIN_WARMUP, parameters=lm.param_count(model),
+               losses=losses,
+               aux_losses=[float(m["aux_loss"]) for m in metrics],
+               grad_norms=[float(m["grad_norm"]) for m in metrics],
+               lrs=[float(m["lr"]) for m in metrics],
+               first_step_ms=ms[0], step_ms=steady, step_ms_each=ms,
+               tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / steady * 1e3,
+               launches=launches,
+               max_memory_allocated=torch.cuda.max_memory_allocated())
+    busy, by_name = flow_busy(lambda: step(model, opt, batch))
+    rec.update(busy_step=busy,
+               top_kernels_ms={kernel_name(k): v / 1e3 for k, v in
+                               sorted(by_name.items(),
+                                      key=lambda kv: -kv[1])[:6]},
+               phase_s=time.perf_counter() - t0)
+    del model, opt
+    return rec
+
+
+def train_agree_phase(device, seed: int, cfg=None,
+                      examples: bool = True) -> dict:
+    """`train_agree`: AGREE_TRAIN_ARCH at full width, depth cut to
+    AGREE_TRAIN_LAYERS, f32 with TF32 off. One `make_train_step` on the
+    card and one on the CPU (the plain PyTorch path) from the same seeded
+    weights: loss and grad norm within TRAIN_REL; every parameter's
+    gradient leaf by leaf within GRAD_RTOL plus GRAD_ATOL_OF_MAX of the
+    leaf's largest, read off the step's first moment (from zero moments
+    mu = (1 - b1) * clip scale * gradient, in f32, and the two clip
+    scales agree within TRAIN_REL); every updated parameter within
+    2 * lr + 1e-6 (Adam's first step turns each gradient entry into about
+    +-1, so an entry that is nearly zero may flip its sign and move its
+    parameter by up to 2 * lr; from equal weights two first steps differ
+    by at most that whatever their gradients, so this bound only catches
+    a missing, non-finite or mis-scheduled update, and the gradients are
+    what hold the backward). Then accum_steps 4 against 1 on the card at
+    the same bounds; then each example mirror as a subprocess on the
+    card."""
+    import copy
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.models import lm
+    from repro_torch.train import adamw_init, make_train_step
+    from repro_torch.train.optimizer import cosine_schedule
+
+    cfg = cfg or dataclasses.replace(get_config(AGREE_TRAIN_ARCH),
+                                     n_layers=AGREE_TRAIN_LAYERS,
+                                     dtype="float32")
+    t0 = time.perf_counter()
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        # drawn on the card (a CPU draw of 1.43 B normals takes seconds),
+        # then copied to the CPU and to a second model on the card
+        card = lm.init_params(cfg, seed, device)
+        card4 = copy.deepcopy(card)
+        host = lm.LM(cfg, torch.device("cpu")).requires_grad_(False)
+        host.load_state_dict(card.state_dict())
+        batch = next(TokenStream(cfg.vocab, AGREE_TRAIN_BATCH,
+                                 AGREE_TRAIN_SEQ, seed=seed))
+        bound = 2 * float(cosine_schedule(TRAIN_LR, TRAIN_WARMUP,
+                                          10_000)(1)) + 1e-6
+
+        def one_step(model, accum):
+            """-> (metrics, seconds, the first moments; nu is let go)."""
+            step = make_train_step(cfg, base_lr=TRAIN_LR,
+                                   warmup=TRAIN_WARMUP, accum_steps=accum)
+            clock = time.perf_counter()
+            model, state, m = step(model, adamw_init(model), batch)
+            m = {k: float(v) for k, v in m.items()}     # waits for the step
+            return m, time.perf_counter() - clock, state.mu
+
+        def grads_held(got_mu, want_mu) -> tuple:
+            """Each leaf's gradient (its first moment) on the card against
+            `want_mu`: -> (worst error over the leaf's largest, its leaf,
+            leaves out of bounds, the smallest leaf maximum)."""
+            worst, worst_leaf, bad, least = 0.0, None, [], math.inf
+            for n, a in got_mu.items():
+                b = want_mu[n].to(a.device)
+                top = float(b.abs().max())
+                err = (a - b).abs()
+                if not bool((err <= GRAD_RTOL * b.abs()
+                             + GRAD_ATOL_OF_MAX * top).all()):
+                    bad.append(n)
+                share = float(err.max()) / top if top else float(err.max())
+                if share >= worst:
+                    worst, worst_leaf = share, n
+                least = min(least, top)
+                del b, err
+            return worst, worst_leaf, bad, least
+
+        def held(what, got, got_model, got_mu, want, want_model,
+                 want_mu) -> dict:
+            """Metrics within TRAIN_REL, gradients within GRAD_RTOL and
+            GRAD_ATOL_OF_MAX, parameters within `bound`."""
+            rel = {k: abs(got[k] - want[k]) / abs(want[k])
+                   for k in ("loss", "grad_norm")}
+            g_share, g_leaf, g_bad, g_least = grads_held(got_mu, want_mu)
+            errs = {n: float((a.cpu() - b.cpu()).abs().max())
+                    for (n, a), (_, b) in zip(got_model.named_parameters(),
+                                              want_model.named_parameters())}
+            worst = max(errs, key=errs.get)
+            out = dict(rel=rel, grad_err_of_leaf_max=g_share,
+                       worst_grad=g_leaf, grads_out_of_bounds=g_bad,
+                       least_leaf_max_mu=g_least,
+                       grad_rtol=GRAD_RTOL, grad_atol_of_max=GRAD_ATOL_OF_MAX,
+                       max_param_err=errs[worst], worst_param=worst,
+                       bound=bound)
+            if (max(rel.values()) > TRAIN_REL or g_bad or not g_least > 0
+                    or errs[worst] > bound):
+                raise AssertionError(f"train_agree {what}: {out}")
+            return out
+
+        m_card, card_s, mu_card = one_step(card, 1)
+        m_cpu, cpu_s, mu_cpu = one_step(host, 1)
+        m_card4, card4_s, mu_card4 = one_step(card4, 4)
+        rec = dict(arch=cfg.name, layers=cfg.n_layers, dtype=cfg.dtype,
+                   tf32=False, batch=AGREE_TRAIN_BATCH, seq=AGREE_TRAIN_SEQ,
+                   parameters=lm.param_count(host),
+                   metrics={"card": m_card, "cpu": m_cpu,
+                            "card accum 4": m_card4},
+                   step_s={"card": card_s, "cpu": cpu_s,
+                           "card accum 4": card4_s})
+        rec["card vs cpu"] = held("card vs cpu", m_card, card, mu_card,
+                                  m_cpu, host, mu_cpu)
+        rec["accum 4 vs 1"] = held("accum 4 vs 1", m_card4, card4, mu_card4,
+                                   m_card, card, mu_card)
+        rec["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    del host, card, card4, mu_card, mu_cpu, mu_card4
+    torch.cuda.empty_cache()
+    if examples:
+        rec["examples"] = run_examples()
+    rec["phase_s"] = time.perf_counter() - t0
+    return rec
+
+
+EXAMPLES = (("quickstart_torch.py", [], "quickstart OK"),
+            ("long_context_serve_torch.py", [], "tiered cache:"),
+            ("train_lm_torch.py",
+             ["--steps", "100", "--ckpt-dir",
+              str(ROOT / "build" / "train_lm_torch")],
+             "exact bitwise restore expected: OK"))
+
+
+def run_examples() -> dict:
+    """The example mirrors as subprocesses on the card (their default
+    device), all three at once (each is small beside the card): exit 0
+    and its own closing line; seconds each, from the common start to its
+    exit."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    logs = ROOT / "build" / "examples"
+    logs.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    runs = {}
+    for name, extra, _ in EXAMPLES:
+        with open(logs / f"{name}.out", "w") as out, \
+                open(logs / f"{name}.err", "w") as err:
+            runs[name] = subprocess.Popen(
+                [sys.executable, str(ROOT / "examples" / name), *extra],
+                stdout=out, stderr=err, env=env, cwd=ROOT)
+    done = {}
+    try:
+        while len(done) < len(runs):
+            for name, proc in runs.items():
+                if name not in done and proc.poll() is not None:
+                    done[name] = time.perf_counter() - t0
+            if time.perf_counter() - t0 > 600:
+                raise AssertionError(f"examples still running after 600 s: "
+                                     f"{sorted(set(runs) - set(done))}")
+            time.sleep(0.2)
+    finally:
+        for proc in runs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    out = {}
+    for name, _, expect in EXAMPLES:
+        text = (logs / f"{name}.out").read_text()
+        if runs[name].returncode or expect not in text:
+            raise AssertionError(
+                f"example {name} failed (rc {runs[name].returncode}):\n"
+                f"{text}\n{(logs / f'{name}.err').read_text()}")
+        out[name] = dict(s=done[name],
+                         last_line=text.strip().splitlines()[-1])
+    return out
+
 # --------------------------------------------------------------------------
 
 def main() -> int:
@@ -4750,6 +5020,14 @@ def main() -> int:
         encdec_serve = encdec_serve_phase(device, args.seed, counters)
     log(f"encdec_serve [{card}]: " + json.dumps(encdec_serve))
     torch.cuda.empty_cache()
+
+    with phase("train"):
+        train = train_phase(device, args.seed, counters)
+    log(f"train [{card}]: " + json.dumps(train))
+    torch.cuda.empty_cache()
+    with phase("train_agree"):
+        train_agree = train_agree_phase(device, args.seed)
+    log(f"train_agree [{card}]: " + json.dumps(train_agree))
 
     for rec in kernels:
         rec["launches"] = launches[rec["name"]]

@@ -90,6 +90,16 @@ def bloom_build(keys: torch.Tensor, valid: torch.Tensor, words: int, k: int,
     return words_to_i32(packed[:words])
 
 
+
+def bloom_insert(filter_words: torch.Tensor, keys: torch.Tensor,
+                 valid: torch.Tensor, k: int,
+                 bits: int | None = None) -> torch.Tensor:
+    """OR new keys into an existing (words,) int32 filter: a `bloom_build`
+    of the same geometry, or'ed word by word (the int32 words hold the
+    reference's uint32 bits, so the OR is the same)."""
+    add = bloom_build(keys, valid, filter_words.shape[-1], k, bits)
+    return filter_words | add
+
 def bloom_probe(filter_words: torch.Tensor, keys: torch.Tensor, k: int,
                 bits: int | None = None) -> torch.Tensor:
     """Membership test over a (words,) int32 filter: (...,) keys -> bool.

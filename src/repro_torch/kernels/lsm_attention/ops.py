@@ -192,12 +192,21 @@ def decode_attention_op(q, k, v, lengths, scale: float) -> torch.Tensor:
                    scale=scale)
 
 
-def select_blocks(q, summaries, n_blocks, topk: int):
+def select_blocks(q, summaries, n_blocks, topk: int, groups: int = 1):
     """Top-k cold blocks per kv head by max over the head's query group
     of q . summary, in f32 (blocks at or past n_blocks score -inf).
 
     q (B, H, dh); summaries (B, NB, KV, dh); n_blocks (B,)
     -> ids (B, KV, topk) int64, ok (B, KV, topk) bool
+
+    With `groups` G > 1 (the reference's hierarchical selection,
+    `lsm_dp_groups`; G must divide NB and topk <= NB / G): a top-k in
+    each group of NB / G consecutive blocks, then a global threshold,
+    the k-th largest of the G * topk candidates. ids (B, KV, G * topk)
+    are global block ids, group by group; ok admits a candidate whose
+    score is finite and at least the threshold, so exactly the global
+    top-k blocks (and any ties with the k-th) are attended, as without
+    groups.
     """
     b, h, dh = q.shape
     nb, kv = summaries.shape[1:3]
@@ -206,8 +215,17 @@ def select_blocks(q, summaries, n_blocks, topk: int):
                          summaries.float()).amax(dim=2)     # (B, KV, NB)
     blk_ok = torch.arange(nb, device=q.device)[None, :] < n_blocks[:, None]
     score = torch.where(blk_ok[:, None, :], score, -torch.inf)
-    top, ids = torch.topk(score, topk, dim=-1)
-    return ids, torch.isfinite(top)
+    if groups == 1:
+        top, ids = torch.topk(score, topk, dim=-1)
+        return ids, torch.isfinite(top)
+    nbl = nb // groups
+    loc_s, loc_i = torch.topk(score.reshape(b, kv, groups, nbl), topk,
+                              dim=-1)                       # (B,KV,G,topk)
+    flat_s = loc_s.reshape(b, kv, groups * topk)
+    kth = torch.topk(flat_s, topk, dim=-1).values[..., -1:]
+    base = torch.arange(groups, device=q.device)[:, None] * nbl
+    ids = (loc_i + base).reshape(b, kv, groups * topk)
+    return ids, torch.isfinite(flat_s) & (flat_s >= kth)
 
 
 def tiered_inputs(hot_k, hot_v, hot_len, blk_k, blk_v, ids, ok):

@@ -230,9 +230,12 @@ def lsm_decode_self_attention(cfg, p: Attention, x1, cache: dict, pos,
     slot `at` (= hot_len[0], read by the caller) in place. Returns
     (out (B, 1, d), cache with hot_len + 1).
 
-    This is the reference's single-device branch. Its sharded-stats
-    branch needs a device mesh, which the port has not; its grouped
-    selection (`lsm_dp_groups > 1`) raises here.
+    This is the reference's single-device branch, with its grouped
+    selection (`lsm_dp_groups` G > 1 where G divides the block count
+    and topk <= NB / G: a top-k a group, then a global threshold over
+    the G * topk candidates, all of which go to the kernel, masked by
+    `ok`). Its sharded-stats branch needs a device mesh, which the port
+    has not.
     """
     b = x1.shape[0]
     hot_k, hot_v = cache["hot_k"], cache["hot_v"]
@@ -243,9 +246,8 @@ def lsm_decode_self_attention(cfg, p: Attention, x1, cache: dict, pos,
     nb = cache["blk_k"].shape[1]
     topk = min(cfg.lsm_topk, nb)
     gsel = max(1, min(cfg.lsm_dp_groups, nb))
-    if gsel > 1 and nb % gsel == 0 and topk <= nb // gsel:
-        raise NotImplementedError("grouped block selection "
-                                  "(lsm_dp_groups > 1) is not ported yet")
+    if not (nb % gsel == 0 and topk <= nb // gsel):
+        gsel = 1
     q = _project_q(cfg, p, x1)
     k1, v1 = _project_kv(cfg, p, x1)
     q = apply_rope(q, pos[:, None], cfg.rope_theta)
@@ -256,7 +258,8 @@ def lsm_decode_self_attention(cfg, p: Attention, x1, cache: dict, pos,
 
     # block selection (the filter probe): q in the cache dtype, f32 scores
     qg = q[:, 0].to(cache["blk_k"].dtype)                   # (B, H, hd)
-    ids, ok = KLA.select_blocks(qg, cache["summ"], cache["n_blocks"], topk)
+    ids, ok = KLA.select_blocks(qg, cache["summ"], cache["n_blocks"], topk,
+                                gsel)
     out = KLA.lsm_decode_attention(qg, hot_k, hot_v, hot_len,
                                    cache["blk_k"], cache["blk_v"], ids, ok,
                                    hd ** -0.5)

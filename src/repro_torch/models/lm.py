@@ -18,6 +18,12 @@ with `lax.scan`; here the layers are an `nn.ModuleList` looped in
 Python, and each cache keeps the reference's stacked (L, B, ...) layout
 so that caches convert between the packages leaf for leaf.
 
+`forward` trains: when autograd records, each layer runs as a checkpoint
+(`torch.utils.checkpoint`, recomputed in the backward), as the
+reference's `jax.checkpoint` on its scan body; the serving entry
+points (`forward_collect`, `prefill_step`, `logits_full`,
+`decode_step`) run without autograd.
+
 Every entry point runs where the model's parameters lie: `init_params`
 puts them on the CUDA card and raises without one unless asked for
 `device="cpu"`.
@@ -28,6 +34,7 @@ import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as ATT
@@ -142,6 +149,33 @@ def init_params(cfg, generator: torch.Generator | int, device=None) -> LM:
     return model.requires_grad_(False)
 
 
+def param_count(model) -> int:
+    """Parameter elements of an `LM` (or a dict of tensors), the padded
+    vocabulary's rows and columns included, as the reference counts its
+    tree's."""
+    tensors = (model.values() if isinstance(model, dict)
+               else model.parameters())
+    return sum(t.numel() for t in tensors)
+
+
+def _records_grad(model: LM) -> bool:
+    """Whether autograd records a forward of `model`: grad mode on and a
+    parameter that requires grad."""
+    return torch.is_grad_enabled() and any(p.requires_grad
+                                           for p in model.parameters())
+
+
+def _layer(train: bool, fn, *args):
+    """One layer's function; when training, as a checkpoint whose
+    activations are recomputed in the backward (the reference's
+    `jax.checkpoint` on its scan body). The layers draw no random
+    numbers, so no RNG state is kept."""
+    if train:
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return fn(*args)
+
+
 def _embed(cfg, model: LM, tokens: torch.Tensor) -> torch.Tensor:
     x = model.embed[tokens]
     if cfg.embed_scale:
@@ -196,8 +230,10 @@ def _encode(cfg, model: LM, frames) -> torch.Tensor:
                         f"{model.embed.dtype} expected")
     t = frames.shape[1]
     x = frames + _sinusoid(t, cfg.d_model, frames.device).to(frames.dtype)
+    train = _records_grad(model)
     for lp in model.enc_layers:
-        x = _block_fwd(cfg, lp, x, None, causal=False)[0]
+        x = _layer(train, lambda x, lp=lp: _block_fwd(cfg, lp, x, None,
+                                                      causal=False)[0], x)
     return apply_norm(cfg, model.enc_norm, x)
 
 
@@ -295,34 +331,47 @@ def _stack(cfg, model: LM, batch: dict, caches: dict | None):
             stack["k"][j], stack["v"][j] = k, v
         return x, a
 
+    def ssm_layer(i, lp, x):
+        h = apply_norm(cfg, lp.ln1, x)
+        if caches is None:
+            x = x + SSM.mamba2_forward(cfg, lp.mixer, h)
+        else:
+            y, st = SSM.mamba2_prefill(cfg, lp.mixer, h)
+            x = x + y
+            caches["ssm"][i], caches["conv"][i] = st["ssm"], st["conv"]
+        if _is_application(cfg, i):
+            # the shared block's K/V only where it runs (the reference
+            # computes them after every layer and keeps these); under
+            # autograd its parameters gather a gradient an application
+            x, _ = attend(model.shared, x, i // cfg.shared_attn_every)
+        return x
+
+    def dec_layer(i, lp, x, enc_h):
+        x, k, v, ek, ev = _dec_block_fwd(cfg, lp, x, enc_h)
+        if caches is not None:
+            stack["k"][i], stack["v"][i] = k, v
+            caches["enc_k"][i], caches["enc_v"][i] = ek, ev
+        return x
+
+    train = _records_grad(model)
     for i, lp in enumerate(model.layers):
         if isinstance(lp, SSMBlock):
-            h = apply_norm(cfg, lp.ln1, x)
-            if caches is None:
-                x = x + SSM.mamba2_forward(cfg, lp.mixer, h)
-            else:
-                y, st = SSM.mamba2_prefill(cfg, lp.mixer, h)
-                x = x + y
-                caches["ssm"][i], caches["conv"][i] = st["ssm"], st["conv"]
-            if _is_application(cfg, i):
-                # the shared block's K/V only where it runs (the reference
-                # computes them after every layer and keeps these)
-                x, _ = attend(model.shared, x, i // cfg.shared_attn_every)
+            x = _layer(train, ssm_layer, i, lp, x)
         elif isinstance(lp, DecBlock):
-            x, k, v, ek, ev = _dec_block_fwd(cfg, lp, x, enc_h)
-            if caches is not None:
-                stack["k"][i], stack["v"][i] = k, v
-                caches["enc_k"][i], caches["enc_v"][i] = ek, ev
+            x = _layer(train, dec_layer, i, lp, x, enc_h)
         else:
-            x, a = attend(lp, x, i)
+            x, a = _layer(train, attend, lp, x, i)
             if a is not None:
                 aux = aux + a
     return apply_norm(cfg, model.final_norm, x), aux
 
 
-@torch.no_grad()
 def forward(cfg, model: LM, batch: dict):
-    """-> (hidden (B, S, d), aux_loss f32 scalar summed over the layers)."""
+    """-> (hidden (B, S, d), aux_loss f32 scalar summed over the layers).
+    When autograd records (grad mode on, a parameter that requires grad)
+    each layer is a checkpoint, so the backward holds one layer's
+    activations at a time beside each layer's input; the hybrid's
+    shared block gets the sum of its applications' gradients."""
     return _stack(cfg, model, batch, None)
 
 

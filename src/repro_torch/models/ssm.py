@@ -97,12 +97,17 @@ def ssd_chunked(x, dt, a, b, c, chunk: int = CHUNK, h0=None):
     cz = c.reshape(bs, nc, l, g, n).transpose(2, 3)
 
     # (1) intra-chunk: y[l] = sum_s (C_l . B_s) exp(segsum)[l, s] x_s
-    # (in place: at 2 x 24,576 tokens and 64 heads one (B,C,H,L,L) f32
-    # tensor is 3.2 GB)
-    ll = _segsum(a_perm).exp_().reshape(bs, nc, g, rep, l, l)
-    cb = cz @ bz.transpose(-1, -2)                            # (B,C,G,L,L)
-    y_diag = ll.mul_(cb[:, :, :, None]) @ xz                  # (B,C,G,r,L,P)
-    del ll
+    # (in place unless autograd records: at 2 x 24,576 tokens and 64
+    # heads one (B,C,H,L,L) f32 tensor is 3.2 GB; recorded, out of
+    # place, as the backward of exp keeps its output)
+    cb = (cz @ bz.transpose(-1, -2))[:, :, :, None]           # (B,C,G,1,L,L)
+    seg = _segsum(a_perm).reshape(bs, nc, g, rep, l, l)
+    if seg.requires_grad or cb.requires_grad:
+        ll = seg.exp() * cb
+    else:
+        ll = seg.exp_().mul_(cb)
+    y_diag = ll @ xz                                          # (B,C,G,r,L,P)
+    del ll, seg
 
     # (2) chunk state summaries: sum_l decay_l x_l B_l^T -> (B,C,H,P,N)
     decay_states = torch.exp(a_cum[..., -1:] - a_cum).reshape(

@@ -148,6 +148,7 @@ def _now(device, stats) -> float | None:
     return time.perf_counter()
 
 
+@torch.no_grad()
 def generate(cfg, model, prompt_batch: dict, steps: int,
              kind: str = "dense", max_len: int | None = None,
              stats: dict | None = None):

@@ -60,6 +60,23 @@ def test_bloom_build_and_probe_bitwise(n, words, k, bits):
     assert pg[:keys.size][valid].all()   # no false negatives
 
 
+@pytest.mark.parametrize("words,k,bits", [(64, 5, None), (300, 7, 4000)])
+def test_bloom_insert_bitwise(words, k, bits):
+    """`bloom_insert` ORs a second build into a filter bit for bit as the
+    reference's (and equals one build over both key sets)."""
+    rng = np.random.default_rng(words)
+    a, b = _keys(rng, 200), _keys(rng, 150)
+    va, vb = rng.random(a.size) < 0.8, rng.random(b.size) < 0.8
+    ref = RBL.bloom_build(jnp.asarray(a), jnp.asarray(va), words, k, bits)
+    ref = np.asarray(RBL.bloom_insert(ref, jnp.asarray(b), jnp.asarray(vb),
+                                      k, bits))
+    got = TBL.bloom_build(_t(a), _t(va), words, k, bits)
+    got = TBL.bloom_insert(got, _t(b), _t(vb), k, bits)
+    np.testing.assert_array_equal(got.numpy(), ref.view(np.int32))
+    both = TBL.bloom_build(_t(np.concatenate([a, b])),
+                           _t(np.concatenate([va, vb])), words, k, bits)
+    assert torch.equal(got, both)
+
 def _runs(rng, k, cap, key_space=300, fill=0.8):
     """k (key, seq)-sorted deduped runs with globally unique seqs and
     mixed weights, KEY_EMPTY-padded — the engine's run layout."""
@@ -286,3 +303,24 @@ def test_core_facade_exports_match_reference():
         assert getattr(TC, name) == getattr(RC, name)
     with pytest.raises(AttributeError):
         TC.OpsBackend
+
+
+def test_engine_exports_match_reference():
+    """`repro_torch.engine` exports every public name of `repro.engine`
+    but the backend selector (`OpsBackend`, `get_backend`, `BACKENDS`),
+    each the object its port submodule defines."""
+    import repro.engine as RE
+    from repro_torch import engine as TE
+    from repro_torch.engine import batching, scheduler, tuner
+
+    def public(mod):
+        return {n for n, v in vars(mod).items() if not n.startswith("_")
+                and not isinstance(v, type(RE))}
+    selector = {"OpsBackend", "get_backend", "BACKENDS"}
+    missing = public(RE) - selector - public(TE)
+    assert not missing, sorted(missing)
+    assert not selector & public(TE)
+    assert TE.Tuner is tuner.Tuner and TE.pad_to is batching.pad_to
+    assert TE.Occupancy is scheduler.Occupancy
+    assert TE.ADAPTIVE_BUCKETS == RE.ADAPTIVE_BUCKETS
+    assert TE.RANGE_BUCKETS == RE.RANGE_BUCKETS

@@ -852,6 +852,100 @@ def test_encdec_and_vlm_decode_on_card_match_cpu(cuda, arch, kind):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("groups", [2, 4])
+def test_grouped_selection_decode_on_card_matches_ungrouped(cuda, groups):
+    """`lsm_dp_groups` G on the card: one tiered decode step of the
+    DeepSeek smoke model (topk 2, more sealed blocks than that), f32,
+    launches the kernel once a layer with all G * topk candidates and
+    gives the ungrouped step's logits within 1e-5, and the CPU's grouped
+    step's within the card tests' 1e-4."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.serving import lsm_from_dense
+    cfg = dataclasses.replace(get_config("deepseek-7b").smoke(), lsm_topk=2)
+    grouped = dataclasses.replace(cfg, lsm_dp_groups=groups)
+    model = lm.init_params(cfg, 0, device="cpu")
+    prompt = torch.randint(0, cfg.vocab, (2, 97),
+                           generator=torch.Generator().manual_seed(2))
+    _, dense = lm.prefill_step(cfg, model, {"tokens": prompt[:, :96]})
+    caches = lsm_from_dense(cfg, dense, 112)
+    assert (caches["n_blocks"] > cfg.lsm_topk).all()
+    want_cpu, _ = lm.decode_step(grouped, model, prompt[:, 96],
+                                 {k: t.clone() for k, t in caches.items()},
+                                 "lsm")
+    model = model.to(cuda)
+    tok = prompt[:, 96].to(cuda)
+    one, _ = lm.decode_step(cfg, model, tok,
+                            {k: t.to(cuda) for k, t in caches.items()}, "lsm")
+    before = KLA.lsm_decode_attention.launches
+    got, _ = lm.decode_step(grouped, model, tok,
+                            {k: t.to(cuda) for k, t in caches.items()}, "lsm")
+    torch.cuda.synchronize()
+    assert KLA.lsm_decode_attention.launches - before == cfg.n_layers
+    torch.testing.assert_close(got, one, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(got.cpu(), want_cpu, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["deepseek-7b", "granite-moe-1b-a400m"])
+def test_train_step_on_card_matches_cpu(cuda, arch):
+    """One `make_train_step` of a smoke model, f32 with TF32 off, on the
+    card and on the CPU (plain PyTorch) from the same weights: loss, aux
+    and grad norm within 1e-5 relative; every parameter's gradient, from
+    `value_and_grad` and from the step's first AdamW moment (from zero
+    moments mu = (1 - b1) * clip scale * gradient), within rtol 1e-4 and
+    atol 1e-6 times the leaf's largest |gradient| where that exceeds 1,
+    the CPU parity tests' rule; every updated parameter within
+    2 * lr + 1e-6 (Adam's first step turns each gradient entry into about
+    +-1, so an entry that is nearly zero may flip its sign and move its
+    parameter by up to 2 * lr; from equal weights no gradient can break
+    that bound, which only catches a missing or non-finite update); the
+    parameters stay on the card."""
+    import copy
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.models import lm
+    from repro_torch.train import adamw_init, make_train_step
+    from repro_torch.train.train_step import value_and_grad
+    cfg = get_config(arch).smoke()
+    host = lm.init_params(cfg, 1, device="cpu")
+    card = copy.deepcopy(host).to(cuda)
+    batch = next(TokenStream(cfg.vocab, 4, 32, seed=3))
+    step = make_train_step(cfg, base_lr=1e-3, warmup=2)
+
+    def grads_close(got, want, what):
+        assert set(got) == set(want)
+        for n, w in want.items():
+            torch.testing.assert_close(
+                got[n].cpu(), w, rtol=1e-4,
+                atol=1e-6 * max(1.0, float(w.abs().max())),
+                msg=f"{what} {n}")
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        gc = value_and_grad(cfg, card, batch)[3]
+        card, sc, mc = step(card, adamw_init(card), batch)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    gh = value_and_grad(cfg, host, batch)[3]
+    host, sh, mh = step(host, adamw_init(host), batch)
+    for k in ("loss", "aux_loss", "grad_norm", "lr"):
+        assert mc[k].device.type == "cuda"
+        assert abs(float(mc[k]) - float(mh[k])) <= 1e-5 * abs(float(mh[k]))
+    grads_close(gc, gh, "value_and_grad")
+    scale = 0.1 * min(1.0, 1.0 / float(mh["grad_norm"]))
+    grads_close({n: m / scale for n, m in sc.mu.items()},
+                {n: m / scale for n, m in sh.mu.items()}, "step")
+    bound = 2 * float(mh["lr"]) + 1e-6
+    for (n, a), (_, b) in zip(card.named_parameters(),
+                              host.named_parameters()):
+        assert a.device.type == "cuda"
+        assert float((a.cpu() - b).abs().max()) <= bound, n
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("adaptive", [False, True])
 def test_durable_engine_on_card_restores_on_card_and_cpu(cuda, tmp_path,
                                                          adaptive):

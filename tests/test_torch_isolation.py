@@ -1,4 +1,5 @@
-"""The port stands alone: importing every `repro_torch` module pulls in
+"""The port stands alone: importing every `repro_torch` module (the
+training path's `train` and `data` among them) pulls in
 neither JAX nor the reference package (nor `ml_dtypes`: the snapshot
 codec and checkpoints carry bfloat16 without it), and the engine refuses
 to start without a CUDA card unless asked for the CPU, adaptive tuning
@@ -18,8 +19,12 @@ import importlib, pkgutil, sys
 import repro_torch
 mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
-for name in mods + ["repro_torch.engine.wal", "repro_torch.checkpoint"]:
+for name in mods + ["repro_torch.engine.wal", "repro_torch.checkpoint",
+                    "repro_torch.train", "repro_torch.train.train_step",
+                    "repro_torch.data"]:
     importlib.import_module(name)
+assert {"repro_torch.train.train_step", "repro_torch.data.pipeline"} \
+    <= set(mods), mods
 import tempfile
 import torch
 from repro_torch.checkpoint import CheckpointManager

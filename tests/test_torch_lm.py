@@ -465,9 +465,68 @@ def test_decode_refuses_out_of_range_writes():
                                                  lsm["blk_k"].shape[2]))
     with pytest.raises(IndexError, match="free cold block"):
         TKV.seal_hot_block(cfg, no_room)
-    grouped = dataclasses.replace(cfg, lsm_dp_groups=2)
-    with pytest.raises(NotImplementedError, match="lsm_dp_groups"):
-        TLM.decode_step(grouped, model, tok, lsm, "lsm")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             TLM.init_params(cfg, 0)
+
+
+# -- grouped block selection (lsm_dp_groups > 1) -----------------------------
+
+@pytest.mark.parametrize("groups", [2, 4])
+def test_grouped_block_selection_matches_ungrouped_and_reference(
+        groups, monkeypatch):
+    """The port of `tests/test_perf_opts.py::test_grouped_lsm_selection_exact`:
+    one tiered decode step of the DeepSeek smoke model (topk 2, more
+    sealed blocks than that) with `lsm_dp_groups` G against G = 1 at
+    1e-5, and against the reference's grouped step at the logit
+    tolerance, from the reference's own caches. The kernel's plain
+    version gets all G * topk candidates, masked by `ok`."""
+    cfg = dataclasses.replace(get_config("deepseek-7b").smoke(),
+                              lsm_dp_groups=1, lsm_topk=2)
+    rcfg = dataclasses.replace(ref_config("deepseek-7b").smoke(),
+                               lsm_dp_groups=1, lsm_topk=2)
+    params = RLM.init_params(rcfg, jax.random.PRNGKey(0))
+    model = CV.lm_params_from_numpy(cfg, jax.tree.map(np.asarray, params),
+                                    "cpu")
+    toks = _tokens(cfg)[:, :PROMPT + 1]
+    _, dense = _ref_prefill(rcfg, params, {"tokens": toks[:, :PROMPT]})
+    lsm = jax.tree.map(np.asarray, RKV.lsm_from_dense(rcfg, dense,
+                                                      PROMPT + 16))
+    assert (lsm["n_blocks"] > cfg.lsm_topk).all()
+    rgrouped = dataclasses.replace(rcfg, lsm_dp_groups=groups)
+    want, _ = _ref_decode(rgrouped, params, jnp.asarray(toks[:, PROMPT]),
+                          jax.tree.map(jnp.asarray, lsm), "lsm")
+    candidates = []
+    plain = TKO.lsm_decode_attention
+
+    def spy(q, hot_k, hot_v, hot_len, blk_k, blk_v, ids, ok, scale):
+        candidates.append(ids.shape[-1])
+        return plain(q, hot_k, hot_v, hot_len, blk_k, blk_v, ids, ok, scale)
+
+    monkeypatch.setattr(TKO, "lsm_decode_attention", spy)
+    tok = torch.from_numpy(toks[:, PROMPT])
+    one, _ = TLM.decode_step(cfg, model, tok,
+                             CV.caches_from_numpy(lsm, "cpu"), "lsm")
+    got, _ = TLM.decode_step(dataclasses.replace(cfg, lsm_dp_groups=groups),
+                             model, tok, CV.caches_from_numpy(lsm, "cpu"),
+                             "lsm")
+    n = cfg.n_layers
+    assert candidates == [cfg.lsm_topk] * n + [groups * cfg.lsm_topk] * n
+    _close(got, one, rtol=1e-5, atol=1e-5)
+    _close(got, want, **LOGIT_TOL)
+
+
+def test_param_count_matches_reference():
+    """`lm.param_count` of every architecture's smoke model, its
+    vocabulary cut to 500 (padded to 512), counts the reference tree's
+    elements, the padding included."""
+    for arch in all_arch_ids():
+        cfg = dataclasses.replace(get_config(arch).smoke(), vocab=500)
+        rcfg = dataclasses.replace(ref_config(arch).smoke(), vocab=500)
+        shapes = jax.eval_shape(
+            lambda: RLM.init_params(rcfg, jax.random.PRNGKey(0)))
+        model = TLM.init_params(cfg, 0, device="cpu")
+        assert TLM.param_count(model) == RLM.param_count(shapes), arch
+        assert TLM.param_count(dict(model.named_parameters())) \
+            == TLM.param_count(model)
+        assert model.embed.shape[0] == cfg.padded_vocab > cfg.vocab
