@@ -288,10 +288,37 @@ Phases, in order; any failure raises and exits non-zero:
              examples/quickstart_torch.py, long_context_serve_torch.py
              and train_lm_torch.py as three concurrent subprocesses on
              the card (their output in build/examples/).
+  mesh     — `distributed/` on a one-rank NCCL group and a (1, 1)
+             (data, model) mesh on the card (NCCL places no two ranks on
+             one card; the multi-rank checks run in the CPU tests), each
+             check counting that its mesh branch ran, with its seconds
+             and peak memory: `moe_mesh` (Granite-MoE at full width and
+             depth, bf16, DTensor parameters: `logits_full` of 2 x 1,024
+             tokens through `moe_ffn`'s mesh branch against the
+             single-device path, layer 0's FFN output at the kernel
+             tolerance, logits rel L2 <= 2e-2), `lsm_mesh` (Phi-4-mini at
+             full width and depth, b = 1, an 8,192-token prompt, 8
+             teacher-forced tiered decode steps through the sharded-stats
+             branch against the single-device `lsm_attention` branch:
+             logits rel L2 <= 2e-2 or 3x that step's dense floor, layer
+             0's attention at the kernel tolerance, which the branch
+             with its top selected block masked must fail),
+             `train_mesh` (Granite-MoE at full width and depth in f32,
+             TF32 off: one step with DTensor parameters, ZeRO-1 moments
+             and the batch laid out by the sharding rules against the
+             same step with no mesh, at train_agree's bounds) and
+             `compress` (int8 error-feedback roundtrip of a full-size
+             leaf, bitwise the CPU's).
+  mirrors  — tools/recovery_smoke_torch.py, tools/replication_smoke_torch.py
+             (and its --partition mode) and examples/failover_demo_torch.py
+             as concurrent subprocesses on the card, started before the
+             mesh phase (their output in build/mirrors/): exit 0 and
+             the reference twin's success line.
              The kernel's launches are counted by path (lm_serve,
              lm_agree, moe_serve, moe_agree, hybrid_serve, hybrid_agree,
-             hybrid_agree_f32, vlm_serve, vlm_agree, encdec_serve). Each
-             phase's seconds are printed (`phase <name>: <s> s`).
+             hybrid_agree_f32, vlm_serve, vlm_agree, encdec_serve,
+             lsm_mesh). Each phase's seconds are printed (`phase <name>:
+             <s> s`).
 
 The last two lines of standard output are the kernels' JSON record and
 the device record; nothing of JAX or of the reference package is used.
@@ -3987,6 +4014,17 @@ class expert_picks:
                        .sum()) for a, b in zip(self.picks, other.picks))
 
 
+def plain_dense(q, k, v, lengths, scale):
+    """The dense entry point's plain version (`decode_attention_op`'s
+    arguments), on the card."""
+    import torch
+    from repro_torch.kernels.lsm_attention import ops as KLA
+    valid = (torch.arange(k.shape[1], device=k.device)[None, :]
+             < lengths[:, None])[:, None, :].expand(
+                 k.shape[0], k.shape[2], -1).to(torch.int8)
+    return KLA.decode_attention_plain(q, k, v, valid.contiguous(), scale)
+
+
 def lm_agree_phase(cfg, model, seed: int):
     """2 x 8,192-token prompts: n_blocks = 7 <= topk, so every cold block
     is selected and the tiered decode must equal the dense one. 8 steps,
@@ -4045,13 +4083,6 @@ def lm_agree_phase(cfg, model, seed: int):
     floor = fork(dense, everything=True)
     kernel = KLA.decode_attention        # carries the launch count
     entry = {"dense": "decode_attention_op", "lsm": "lsm_decode_attention"}
-
-    def plain_dense(q, k, v, lengths, scale):
-        """The dense entry point's plain version, on the card."""
-        valid = (torch.arange(k.shape[1], device=k.device)[None, :]
-                 < lengths[:, None])[:, None, :].expand(
-                     k.shape[0], k.shape[2], -1).to(torch.int8)
-        return KLA.decode_attention_plain(q, k, v, valid.contiguous(), scale)
 
     def step(caches, kind, plain=False, drop_block=False):
         """One decode step, the kernel (or for dense the plain version) in
@@ -4587,6 +4618,53 @@ def train_phase(device, seed: int, counters: dict, cfg=None) -> dict:
     return rec
 
 
+def grads_held(got_mu, want_mu) -> tuple:
+    """Each leaf's gradient (its first moment) against `want_mu`: ->
+    (worst error over the leaf's largest, its leaf, leaves out of
+    GRAD_RTOL plus GRAD_ATOL_OF_MAX of the leaf's largest, the smallest
+    leaf maximum)."""
+    worst, worst_leaf, bad, least = 0.0, None, [], math.inf
+    for n, a in got_mu.items():
+        b = want_mu[n].to(a.device)
+        top = float(b.abs().max())
+        err = (a - b).abs()
+        if not bool((err <= GRAD_RTOL * b.abs()
+                     + GRAD_ATOL_OF_MAX * top).all()):
+            bad.append(n)
+        share = float(err.max()) / top if top else float(err.max())
+        if share >= worst:
+            worst, worst_leaf = share, n
+        least = min(least, top)
+        del b, err
+    return worst, worst_leaf, bad, least
+
+
+def named(model) -> dict:
+    return dict(model.named_parameters())
+
+
+def held(what, got, got_params, got_mu, want, want_params, want_mu,
+         bound) -> dict:
+    """Two train steps' metrics within TRAIN_REL, gradients (first
+    moments, {name: tensor}) by `grads_held`, parameters ({name:
+    tensor}) within `bound`; raises otherwise."""
+    rel = {k: abs(got[k] - want[k]) / abs(want[k])
+           for k in ("loss", "grad_norm")}
+    g_share, g_leaf, g_bad, g_least = grads_held(got_mu, want_mu)
+    errs = {n: float((a.cpu() - want_params[n].cpu()).abs().max())
+            for n, a in got_params.items()}
+    worst = max(errs, key=errs.get)
+    out = dict(rel=rel, grad_err_of_leaf_max=g_share,
+               worst_grad=g_leaf, grads_out_of_bounds=g_bad,
+               least_leaf_max_mu=g_least,
+               grad_rtol=GRAD_RTOL, grad_atol_of_max=GRAD_ATOL_OF_MAX,
+               max_param_err=errs[worst], worst_param=worst, bound=bound)
+    if (max(rel.values()) > TRAIN_REL or g_bad or not g_least > 0
+            or errs[worst] > bound):
+        raise AssertionError(f"{what}: {out}")
+    return out
+
+
 def train_agree_phase(device, seed: int, cfg=None,
                       examples: bool = True) -> dict:
     """`train_agree`: AGREE_TRAIN_ARCH at full width, depth cut to
@@ -4644,47 +4722,6 @@ def train_agree_phase(device, seed: int, cfg=None,
             m = {k: float(v) for k, v in m.items()}     # waits for the step
             return m, time.perf_counter() - clock, state.mu
 
-        def grads_held(got_mu, want_mu) -> tuple:
-            """Each leaf's gradient (its first moment) on the card against
-            `want_mu`: -> (worst error over the leaf's largest, its leaf,
-            leaves out of bounds, the smallest leaf maximum)."""
-            worst, worst_leaf, bad, least = 0.0, None, [], math.inf
-            for n, a in got_mu.items():
-                b = want_mu[n].to(a.device)
-                top = float(b.abs().max())
-                err = (a - b).abs()
-                if not bool((err <= GRAD_RTOL * b.abs()
-                             + GRAD_ATOL_OF_MAX * top).all()):
-                    bad.append(n)
-                share = float(err.max()) / top if top else float(err.max())
-                if share >= worst:
-                    worst, worst_leaf = share, n
-                least = min(least, top)
-                del b, err
-            return worst, worst_leaf, bad, least
-
-        def held(what, got, got_model, got_mu, want, want_model,
-                 want_mu) -> dict:
-            """Metrics within TRAIN_REL, gradients within GRAD_RTOL and
-            GRAD_ATOL_OF_MAX, parameters within `bound`."""
-            rel = {k: abs(got[k] - want[k]) / abs(want[k])
-                   for k in ("loss", "grad_norm")}
-            g_share, g_leaf, g_bad, g_least = grads_held(got_mu, want_mu)
-            errs = {n: float((a.cpu() - b.cpu()).abs().max())
-                    for (n, a), (_, b) in zip(got_model.named_parameters(),
-                                              want_model.named_parameters())}
-            worst = max(errs, key=errs.get)
-            out = dict(rel=rel, grad_err_of_leaf_max=g_share,
-                       worst_grad=g_leaf, grads_out_of_bounds=g_bad,
-                       least_leaf_max_mu=g_least,
-                       grad_rtol=GRAD_RTOL, grad_atol_of_max=GRAD_ATOL_OF_MAX,
-                       max_param_err=errs[worst], worst_param=worst,
-                       bound=bound)
-            if (max(rel.values()) > TRAIN_REL or g_bad or not g_least > 0
-                    or errs[worst] > bound):
-                raise AssertionError(f"train_agree {what}: {out}")
-            return out
-
         m_card, card_s, mu_card = one_step(card, 1)
         m_cpu, cpu_s, mu_cpu = one_step(host, 1)
         m_card4, card4_s, mu_card4 = one_step(card4, 4)
@@ -4695,10 +4732,12 @@ def train_agree_phase(device, seed: int, cfg=None,
                             "card accum 4": m_card4},
                    step_s={"card": card_s, "cpu": cpu_s,
                            "card accum 4": card4_s})
-        rec["card vs cpu"] = held("card vs cpu", m_card, card, mu_card,
-                                  m_cpu, host, mu_cpu)
-        rec["accum 4 vs 1"] = held("accum 4 vs 1", m_card4, card4, mu_card4,
-                                   m_card, card, mu_card)
+        rec["card vs cpu"] = held("train_agree card vs cpu", m_card,
+                                  named(card), mu_card, m_cpu, named(host),
+                                  mu_cpu, bound)
+        rec["accum 4 vs 1"] = held("train_agree accum 4 vs 1", m_card4,
+                                   named(card4), mu_card4, m_card,
+                                   named(card), mu_card, bound)
         rec["max_memory_allocated"] = torch.cuda.max_memory_allocated()
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
@@ -4711,38 +4750,56 @@ def train_agree_phase(device, seed: int, cfg=None,
     return rec
 
 
-EXAMPLES = (("quickstart_torch.py", [], "quickstart OK"),
-            ("long_context_serve_torch.py", [], "tiered cache:"),
-            ("train_lm_torch.py",
+# (name, script, arguments, a line its output must hold)
+EXAMPLES = (("quickstart_torch.py", "examples/quickstart_torch.py", [],
+             "quickstart OK"),
+            ("long_context_serve_torch.py",
+             "examples/long_context_serve_torch.py", [], "tiered cache:"),
+            ("train_lm_torch.py", "examples/train_lm_torch.py",
              ["--steps", "100", "--ckpt-dir",
               str(ROOT / "build" / "train_lm_torch")],
              "exact bitwise restore expected: OK"))
+# the process-kill twins, each with the success line of its reference
+MIRRORS = (("recovery", "tools/recovery_smoke_torch.py", [],
+            "OK: restore is oracle-exact"),
+           ("replication", "tools/replication_smoke_torch.py", [],
+            "OK: failover is answer-exact"),
+           ("partition", "tools/replication_smoke_torch.py",
+            ["--partition"], "OK: automatic promotion in"),
+           ("failover_demo", "examples/failover_demo_torch.py", [],
+            "OK: automatic failover -> fence -> rejoin, all answer-exact"))
 
 
-def run_examples() -> dict:
-    """The example mirrors as subprocesses on the card (their default
-    device), all three at once (each is small beside the card): exit 0
-    and its own closing line; seconds each, from the common start to its
-    exit."""
+def start_scripts(entries, logs: Path):
+    """Start each (name, script, arguments, expect) entry as a subprocess
+    on the card (the scripts' default device), all at once; its output
+    in `logs`. -> (the processes by name, their common start)."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    logs = ROOT / "build" / "examples"
     logs.mkdir(parents=True, exist_ok=True)
-    t0 = time.perf_counter()
     runs = {}
-    for name, extra, _ in EXAMPLES:
+    for name, script, extra, _ in entries:
         with open(logs / f"{name}.out", "w") as out, \
                 open(logs / f"{name}.err", "w") as err:
             runs[name] = subprocess.Popen(
-                [sys.executable, str(ROOT / "examples" / name), *extra],
+                [sys.executable, str(ROOT / script), *extra],
                 stdout=out, stderr=err, env=env, cwd=ROOT)
+    return runs, time.perf_counter()
+
+
+def finish_scripts(entries, logs: Path, started, limit_s: float = 600) -> dict:
+    """Wait for `start_scripts`' processes: each must exit 0 with its
+    line in its output; -> seconds each from the common start to its
+    exit (as polled), and its last line. Kills what is left on the way
+    out."""
+    runs, t0 = started
     done = {}
     try:
         while len(done) < len(runs):
             for name, proc in runs.items():
                 if name not in done and proc.poll() is not None:
                     done[name] = time.perf_counter() - t0
-            if time.perf_counter() - t0 > 600:
-                raise AssertionError(f"examples still running after 600 s: "
+            if time.perf_counter() - t0 > limit_s:
+                raise AssertionError(f"still running after {limit_s} s: "
                                      f"{sorted(set(runs) - set(done))}")
             time.sleep(0.2)
     finally:
@@ -4751,15 +4808,336 @@ def run_examples() -> dict:
                 proc.kill()
                 proc.wait()
     out = {}
-    for name, _, expect in EXAMPLES:
+    for name, _, _, expect in entries:
         text = (logs / f"{name}.out").read_text()
         if runs[name].returncode or expect not in text:
             raise AssertionError(
-                f"example {name} failed (rc {runs[name].returncode}):\n"
+                f"{name} failed (rc {runs[name].returncode}):\n"
                 f"{text}\n{(logs / f'{name}.err').read_text()}")
         out[name] = dict(s=done[name],
                          last_line=text.strip().splitlines()[-1])
     return out
+
+
+def run_examples() -> dict:
+    """The example mirrors as subprocesses on the card, all three at once
+    (each is small beside the card): exit 0 and its own closing line;
+    seconds each, from the common start to its exit."""
+    logs = ROOT / "build" / "examples"
+    return finish_scripts(EXAMPLES, logs, start_scripts(EXAMPLES, logs))
+
+
+# --------------------------------------------------------------------------
+# distributed/ on a one-rank mesh
+# --------------------------------------------------------------------------
+
+MESH_SEQ = 1_024                # moe_mesh: 2 x 1,024 tokens
+MESH_TRAIN_BATCH, MESH_TRAIN_SEQ = 4, 256
+
+
+class first_output:
+    """Keeps the first output of `owner.name` (a function) under the
+    context, and counts its calls; the function is put back on exit."""
+
+    def __init__(self, owner, name: str, pick=lambda out: out):
+        self.owner, self.name, self.pick = owner, name, pick
+        self.first, self.calls = None, 0
+
+    def __enter__(self):
+        real = self.real = getattr(self.owner, self.name)
+
+        def call(*args, **kw):
+            out = real(*args, **kw)
+            if self.calls == 0:
+                got = self.pick(out)
+                self.first = (got.full_tensor() if hasattr(got, "full_tensor")
+                              else got).detach().clone()
+            self.calls += 1
+            return out
+        setattr(self.owner, self.name, call)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.real)
+
+
+def on_mesh(mesh):
+    """Register the (data, model) mesh with the model code for a block."""
+    from repro_torch.distributed import runtime as RT
+
+    @contextlib.contextmanager
+    def ctx():
+        RT.set_axes(("data",), "model", mesh)
+        try:
+            yield
+        finally:
+            RT.clear()
+    return ctx()
+
+
+def moe_mesh_check(device, seed: int, mesh, counters: dict) -> dict:
+    """Granite-MoE at full width and depth: `logits_full` of 2 x MESH_SEQ
+    tokens on the single-device path, then with the parameters and batch
+    laid out as DTensors by the sharding rules and the mesh registered:
+    every layer's `moe_ffn` must take its mesh branch; layer 0's FFN
+    output at the kernel tolerance, logits within AGREE_LIMIT."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.models import lm
+    from repro_torch.models import moe as MOE
+
+    cfg = get_config(MOE_SERVE_ARCH)
+    model = lm.init_params(cfg, seed, device)
+    gen = torch.Generator().manual_seed(seed + 20)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, MESH_SEQ),
+                                     generator=gen).to(device)}
+    with first_output(lm, "moe_ffn", lambda o: o[0]) as single, \
+            first_output(MOE, "_moe_mesh", lambda o: o[0]) as branch:
+        want = lm.logits_full(cfg, model, batch)
+    if branch.calls:
+        raise AssertionError("moe_mesh: the mesh branch ran with no mesh")
+    SH.distribute_model(model, mesh, SH.param_pspecs(cfg, model, mesh))
+    dbatch = SH.distribute(batch, mesh, SH.batch_pspecs(cfg, batch, mesh))
+    n0 = {k: fn.launches for k, fn in counters.items()}
+    with on_mesh(mesh), first_output(lm, "moe_ffn", lambda o: o[0]) as got0, \
+            first_output(MOE, "_moe_mesh", lambda o: o[0]) as branch:
+        got = lm.logits_full(cfg, model, dbatch).full_tensor()
+    torch.cuda.synchronize()
+    if branch.calls != cfg.n_layers:
+        raise AssertionError(f"moe_mesh: mesh branch ran {branch.calls} "
+                             f"times for {cfg.n_layers} layers")
+    err0 = att_close(got0.first, single.first, cfg.dtype)
+    rel = rel_l2(got, want)
+    if not (rel <= AGREE_LIMIT and bool(torch.isfinite(got).all())):
+        raise AssertionError(f"moe_mesh: logits rel L2 {rel} > "
+                             f"{AGREE_LIMIT}")
+    return dict(arch=cfg.name, tokens=list(batch["tokens"].shape),
+                mesh_branch_calls=branch.calls, layer0_max_abs_err=err0,
+                rel_l2=rel, limit=AGREE_LIMIT,
+                kernel_launches={k: fn.launches - n0[k]
+                                 for k, fn in counters.items()})
+
+
+def lsm_mesh_check(device, seed: int, mesh, counters: dict) -> dict:
+    """Phi-4-mini at full width and depth, b = 1, an AGREE_PROMPT prompt:
+    AGREE_STEPS tiered decode steps teacher-forced by the single-device
+    branch (the `lsm_attention` kernel in every layer) and the same
+    steps with the mesh registered through the sharded-stats branch
+    (every layer). Logits rel L2 within AGREE_LIMIT or FLOOR_X times the
+    step's dense floor (the dense step with the plain attention against
+    the kernel's); layer 0's attention at the kernel tolerance, which
+    the branch with its top selected block masked in every layer must
+    fail. -> the kernel's launches on this path among the record."""
+    import torch
+    from repro_torch.kernels.lsm_attention import ops as KLA
+    from repro_torch.models import attention as ATT
+    from repro_torch.models import lm
+    from repro_torch.serving import grow_dense, lsm_from_dense
+
+    cfg = lm_config()
+    model = lm.init_params(cfg, seed, device)
+    gen = torch.Generator().manual_seed(seed + 21)
+    prompt = torch.randint(0, cfg.vocab, (1, AGREE_PROMPT), generator=gen)
+    logits, dense = lm.prefill_step(cfg, model, {"tokens": prompt.to(device)})
+    max_len = AGREE_PROMPT + 2 * AGREE_STEPS
+    single = lsm_from_dense(cfg, dense, max_len)
+    meshed = lsm_from_dense(cfg, dense, max_len)
+    dense = grow_dense(cfg, dense, max_len)
+    floor = fork(dense, everything=True)
+    n_blk = int(single["n_blocks"][0, 0])
+    kernel = KLA.decode_attention
+
+    def masked_top(*args, **kw):
+        ids, ok = real_select(*args, **kw)
+        ok = ok.clone()
+        ok[:, :, 0] = False
+        return ids, ok
+
+    real_select = KLA.select_blocks
+    tok = logits.argmax(-1)
+    errs, floors, l0, ctl, launches, stats_calls = [], [], [], [], 0, 0
+    for _ in range(AGREE_STEPS):
+        n0 = kernel.launches
+        with first_output(KLA, "lsm_decode_attention") as s0:
+            ls, single = lm.decode_step(cfg, model, tok, single, "lsm")
+        launches += kernel.launches - n0
+        if kernel.launches - n0 != cfg.n_layers:
+            raise AssertionError("lsm_mesh: the single-device branch "
+                                 "skipped the kernel")
+        n1 = kernel.launches
+        with on_mesh(mesh):
+            KLA.select_blocks = masked_top
+            try:
+                with first_output(ATT, "_lsm_stats") as c0:
+                    lc, _ = lm.decode_step(cfg, model, tok, fork(meshed),
+                                           "lsm")
+            finally:
+                KLA.select_blocks = real_select
+            with first_output(ATT, "_lsm_stats") as m0:
+                lm_, meshed = lm.decode_step(cfg, model, tok, meshed, "lsm")
+        if kernel.launches != n1 or m0.calls != cfg.n_layers:
+            raise AssertionError(f"lsm_mesh: stats branch ran {m0.calls} "
+                                 f"times, the kernel {kernel.launches - n1}")
+        stats_calls += m0.calls
+        ld, dense = lm.decode_step(cfg, model, tok, dense, "dense")
+        real = KLA.decode_attention_op
+        KLA.decode_attention_op = plain_dense
+        try:
+            lp, floor = lm.decode_step(cfg, model, tok, floor, "dense")
+        finally:
+            KLA.decode_attention_op = real
+        if not bool(torch.isfinite(lm_).all() & torch.isfinite(ls).all()):
+            raise AssertionError("lsm_mesh: a logit is not finite")
+        floors.append(rel_l2(lp.float(), ld.float()))
+        errs.append(rel_l2(lm_.float(), ls.float()))
+        l0.append(att_close(m0.first.to(s0.first.dtype), s0.first,
+                            cfg.dtype))
+        if att_within(c0.first.to(s0.first.dtype), s0.first, cfg.dtype):
+            raise AssertionError("lsm_mesh: layer 0 with the top selected "
+                                 "block masked passes the kernel tolerance")
+        ctl.append(float((c0.first.float() - s0.first.float()).abs().max()))
+        tok = ls.argmax(-1)
+    limits = [max(AGREE_LIMIT, FLOOR_X * f) for f in floors]
+    if any(e > lim for e, lim in zip(errs, limits)):
+        raise AssertionError(f"lsm_mesh: rel L2 {errs} over {limits}")
+    return dict(arch=cfg.name, prompt=AGREE_PROMPT, steps=AGREE_STEPS,
+                n_blocks=n_blk, stats_branch_calls=stats_calls,
+                launches=launches, rel_l2=errs, limit=limits,
+                dense_floor_rel_l2=floors, layer0_max_abs_err=l0,
+                block_masked_control_layer0_max_abs_err=ctl)
+
+
+def train_mesh_check(device, seed: int, mesh, counters: dict) -> dict:
+    """Granite-MoE at full width and depth in f32, TF32 off: one
+    `make_train_step` with DTensor parameters (`param_pspecs`), ZeRO-1
+    moments (`zero1_pspecs`) and the batch (`batch_pspecs`) on the mesh,
+    against the same step from the same weights with no mesh, at
+    train_agree's bounds (`held`); every layer's `moe_ffn` on its mesh
+    branch."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.models import lm
+    from repro_torch.models import moe as MOE
+    from repro_torch.train import adamw_init, make_train_step
+    from repro_torch.train.optimizer import cosine_schedule
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), dtype="float32")
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        gen = torch.Generator().manual_seed(seed + 22)
+        shape = (MESH_TRAIN_BATCH, MESH_TRAIN_SEQ)
+        batch = {k: torch.randint(0, cfg.vocab, shape, generator=gen).to(
+            device) for k in ("tokens", "labels")}
+        step = make_train_step(cfg, base_lr=TRAIN_LR, warmup=TRAIN_WARMUP)
+        bound = 2 * float(cosine_schedule(TRAIN_LR, TRAIN_WARMUP,
+                                          10_000)(1)) + 1e-6
+        want_model = lm.init_params(cfg, seed, device)
+        clock = time.perf_counter()
+        _, want_state, want = step(want_model, adamw_init(want_model), batch)
+        want = {k: float(v) for k, v in want.items()}
+        plain_s = time.perf_counter() - clock
+        want_mu = want_state.mu
+        del want_state
+        model = lm.init_params(cfg, seed, device)
+        opt = adamw_init(model)
+        ospecs = SH.zero1_pspecs(cfg, opt, mesh)
+        SH.distribute_model(model, mesh, SH.param_pspecs(cfg, model, mesh))
+        opt = SH.distribute(opt, mesh, ospecs)
+        dbatch = SH.distribute(batch, mesh, SH.batch_pspecs(cfg, batch, mesh))
+        clock = time.perf_counter()
+        with on_mesh(mesh), first_output(MOE, "_moe_mesh", lambda o: o[0]) as branch:
+            _, opt, got = step(model, opt, dbatch)
+            got = {k: float(v.full_tensor() if hasattr(v, "full_tensor")
+                            else v) for k, v in got.items()}
+        mesh_s = time.perf_counter() - clock
+        if branch.calls < cfg.n_layers:
+            raise AssertionError(f"train_mesh: mesh branch ran "
+                                 f"{branch.calls} times")
+        rec = held("train_mesh", got,
+                   {n: p.full_tensor() for n, p in named(model).items()},
+                   {n: m.full_tensor() for n, m in opt.mu.items()}, want,
+                   named(want_model), want_mu, bound)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    rec.update(arch=cfg.name, dtype=cfg.dtype, tf32=False,
+               batch=list(shape), metrics={"mesh": got, "plain": want},
+               step_s={"mesh": mesh_s, "plain": plain_s},
+               mesh_branch_calls=branch.calls)
+    return rec
+
+
+def compress_check(device, seed: int, mesh, counters: dict) -> dict:
+    """`compress_roundtrip` and one `ef_compress_grads` step of a
+    full-size leaf (Granite-MoE's embedding, f32 normals) on the card,
+    bitwise equal to the CPU's."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import compress as TC
+
+    cfg = get_config(MOE_SERVE_ARCH)
+    gen = torch.Generator().manual_seed(seed + 23)
+    host = torch.randn(cfg.padded_vocab, cfg.d_model, generator=gen)
+    res = {"embed": torch.randn(host.shape, generator=gen) * 1e-3}
+    card = host.to(device)
+    clock = time.perf_counter()
+    got = TC.compress_roundtrip(card)
+    applied, new_res = TC.ef_compress_grads(
+        {"embed": card}, {"embed": res["embed"].to(device)})
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - clock
+    want = TC.compress_roundtrip(host)
+    w_applied, w_res = TC.ef_compress_grads({"embed": host}, res)
+    same = (torch.equal(got.cpu(), want)
+            and torch.equal(applied["embed"].cpu(), w_applied["embed"])
+            and torch.equal(new_res["embed"].cpu(), w_res["embed"]))
+    if not same:
+        raise AssertionError("compress: the card's roundtrip differs from "
+                             "the CPU's")
+    return dict(leaf=list(host.shape), bitwise=True, card_s=card_s,
+                max_abs_err_of_roundtrip=float((want - host).abs().max()))
+
+
+def mesh_phase(device, seed: int, counters: dict) -> dict:
+    """The `mesh` checks on a one-rank NCCL group and a (1, 1) mesh; each
+    check's record gets its seconds and peak memory."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_process_group, make_host_mesh
+
+    t0 = time.perf_counter()
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    init_process_group(device, rank=0, world_size=1,
+                       init_method=f"tcp://127.0.0.1:{port}")
+    rec = {}
+    try:
+        mesh = make_host_mesh(1, 1, device=device)
+        for name, check in (("moe_mesh", moe_mesh_check),
+                            ("lsm_mesh", lsm_mesh_check),
+                            ("train_mesh", train_mesh_check),
+                            ("compress", compress_check)):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            clock = time.perf_counter()
+            rec[name] = check(device, seed, mesh, counters)
+            rec[name].update(s=time.perf_counter() - clock,
+                             max_memory_allocated=
+                             torch.cuda.max_memory_allocated())
+            log(f"mesh {name}: {rec[name]['s']:.1f} s")
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    rec["phase_s"] = time.perf_counter() - t0
+    return rec
 
 # --------------------------------------------------------------------------
 
@@ -5028,6 +5406,19 @@ def main() -> int:
     with phase("train_agree"):
         train_agree = train_agree_phase(device, args.seed)
     log(f"train_agree [{card}]: " + json.dumps(train_agree))
+    torch.cuda.empty_cache()
+
+    mirror_logs = ROOT / "build" / "mirrors"
+    mirrors_started = start_scripts(MIRRORS, mirror_logs)
+    try:
+        with phase("mesh"):
+            mesh = mesh_phase(device, args.seed, counters)
+    finally:
+        with phase("mirrors"):
+            mirrors = finish_scripts(MIRRORS, mirror_logs, mirrors_started)
+    for name in ("moe_mesh", "lsm_mesh", "train_mesh", "compress"):
+        log(f"mesh {name} [{card}]: " + json.dumps(mesh[name]))
+    log(f"mirrors [{card}]: " + json.dumps(mirrors))
 
     for rec in kernels:
         rec["launches"] = launches[rec["name"]]
@@ -5049,7 +5440,8 @@ def main() -> int:
                        "vlm_serve": vlm_serve["launches"]["lsm_attention"],
                        "vlm_agree": vlm_agree["launches"],
                        "encdec_serve":
-                           encdec_serve["launches"]["lsm_attention"]},
+                           encdec_serve["launches"]["lsm_attention"],
+                       "lsm_mesh": mesh["lsm_mesh"]["launches"]},
                    card=card)
     kernels.append(lsm_rec)
     print(json.dumps({"kernels": kernels}))

@@ -1,6 +1,6 @@
 """GQA attention: chunked-flash prefill, cached decode over a dense cache,
 decode over the sLSM-tiered cache, and Whisper's cross-attention (port
-of `repro.models.attention`, single-device paths).
+of `repro.models.attention`).
 
 Every decode path ends in one call of the `lsm_attention` kernel
 (`kernels/lsm_attention`), which the reference left to plain jnp on this
@@ -22,6 +22,7 @@ import math
 import torch
 from torch import nn
 
+from repro_torch.distributed import runtime as RT
 from repro_torch.kernels.lsm_attention import ops as KLA
 from repro_torch.models.layers import apply_mrope, apply_rope
 
@@ -39,21 +40,39 @@ class Attention(nn.Module):
         self.wo = nn.Linear(h * hd, d, bias=False, device=device, dtype=dtype)
 
 
+def _split_heads(t, n: int, hd: int):
+    """(B, S, n * hd) -> (B, S, n, hd). On a mesh the projection's output
+    columns are model-sharded; where n heads do not divide |model| the
+    split has no DTensor rule, so the columns are gathered first (the
+    activation, never the weight)."""
+    b, s, _ = t.shape
+    if RT.is_dtensor(t) and n % RT.model_size():
+        t = RT.constrain(t, "dp" if b % RT.dp_size() == 0 else None, None,
+                         None)
+    return t.reshape(b, s, n, hd)
+
+
 def _project_q(cfg, p: Attention, x):
-    b, s, _ = x.shape
-    return p.wq(x).reshape(b, s, cfg.n_heads, cfg.hd)
+    return _split_heads(p.wq(x), cfg.n_heads, cfg.hd)
 
 
 def _project_kv(cfg, p: Attention, x):
-    b, s, _ = x.shape
-    return (p.wk(x).reshape(b, s, cfg.n_kv, cfg.hd),
-            p.wv(x).reshape(b, s, cfg.n_kv, cfg.hd))
+    return (_split_heads(p.wk(x), cfg.n_kv, cfg.hd),
+            _split_heads(p.wv(x), cfg.n_kv, cfg.hd))
 
 
 def _expand_kv(x: torch.Tensor, h: int) -> torch.Tensor:
     """(B, S, KV, hd) -> (B, S, H, hd) by repeating each kv head over its
     query group."""
-    return x.repeat_interleave(h // x.shape[2], dim=2)
+    y = x.repeat_interleave(h // x.shape[2], dim=2)
+    # on a mesh, kv heads that do not divide |model| are replicated; the
+    # expansion's gradient (a sum over each group by a view) has no
+    # DTensor rule on head-sharded gradients, so the layout is pinned
+    if RT.is_dtensor(y) and x.shape[2] % RT.model_size():
+        b = y.shape[0]
+        y = RT.constrain(y, "dp" if b % RT.dp_size() == 0 else None, None,
+                         None, None)
+    return y
 
 
 # --------------------------------------------------------------------------
@@ -75,7 +94,27 @@ def flash_attention(q, k, v, *, causal: bool, q_chunk: int = 1024,
     q (B, Sq, H, hd); k, v (B, Sk, H, hd), already group-expanded. Causal
     KV chunks wholly after a query chunk are skipped: the reference adds
     exactly zero for them (p = exp(-1e30 - m) = 0, correction 1).
+
+    On DTensors (a mesh) each rank attends its own batch rows and heads,
+    on `to_local()` shards: the layout keeps q's batch (dim 0) and head
+    (dim 2) sharding and gathers any other, k and v take the same, and
+    the output is q's layout. (DTensor has no rule for the batched
+    products' flattening of a head-sharded (B, H) on every torch
+    release.)
     """
+    if not RT.is_dtensor(q):
+        return _flash(q, k, v, causal, q_chunk, k_chunk, q_offset)
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = q.device_mesh
+    place = tuple(p if p in (Shard(0), Shard(2)) else Replicate()
+                  for p in q.placements)
+    q, k, v = (t.redistribute(mesh, place).to_local() for t in (q, k, v))
+    out = _flash(q, k, v, causal, q_chunk, k_chunk, q_offset)
+    return DTensor.from_local(out, mesh, place, run_check=False)
+
+
+def _flash(q, k, v, causal: bool, q_chunk: int, k_chunk: int,
+           q_offset: int):
     b, sq, h, hd = q.shape
     sk = k.shape[1]
     scale = hd ** -0.5
@@ -187,6 +226,12 @@ def decode_self_attention(cfg, p: Attention, x1, cache_k, cache_v, pos,
     cache_k[:, at] = k1[:, 0].to(cache_k.dtype)
     cache_v[:, at] = v1[:, 0].to(cache_v.dtype)
     qg = q[:, 0].to(cache_k.dtype).contiguous()            # (B, H, hd)
+    # the kv-head axis (H = KV x group, kv-major) carries the model
+    # sharding where it divides, as the reference pins it
+    if cfg.n_kv % max(RT.model_size(), 1) == 0:
+        qg = RT.constrain(qg, "dp", "model", None)
+    else:
+        qg = RT.constrain(qg, "dp", None, None)
     out = KLA.decode_attention_op(qg, cache_k, cache_v, pos + 1,
                                   cfg.hd ** -0.5)
     return p.wo(out.reshape(b, 1, cfg.n_heads * cfg.hd).to(x1.dtype))
@@ -230,12 +275,14 @@ def lsm_decode_self_attention(cfg, p: Attention, x1, cache: dict, pos,
     slot `at` (= hot_len[0], read by the caller) in place. Returns
     (out (B, 1, d), cache with hot_len + 1).
 
-    This is the reference's single-device branch, with its grouped
-    selection (`lsm_dp_groups` G > 1 where G divides the block count
-    and topk <= NB / G: a top-k a group, then a global threshold over
-    the G * topk candidates, all of which go to the kernel, masked by
-    `ok`). Its sharded-stats branch needs a device mesh, which the port
-    has not.
+    Two branches, taken where the reference takes them. With a mesh
+    registered, b == 1, the blocks divisible by |data|, the kv heads by
+    |model| and `lsm_dp_groups` 1: the sharded-stats branch
+    (`_lsm_stats`). Otherwise the single-device branch, one kernel call,
+    with the grouped selection (`lsm_dp_groups` G > 1 where G divides
+    the block count and topk <= NB / G: a top-k a group, then a global
+    threshold over the G * topk candidates, all of which go to the
+    kernel, masked by `ok`).
     """
     b = x1.shape[0]
     hot_k, hot_v = cache["hot_k"], cache["hot_v"]
@@ -258,6 +305,11 @@ def lsm_decode_self_attention(cfg, p: Attention, x1, cache: dict, pos,
 
     # block selection (the filter probe): q in the cache dtype, f32 scores
     qg = q[:, 0].to(cache["blk_k"].dtype)                   # (B, H, hd)
+    if (RT.mesh() is not None and b == 1 and nb % RT.data_size() == 0
+            and cfg.n_kv % RT.model_size() == 0 and cfg.lsm_dp_groups == 1):
+        out = _lsm_stats(cfg, qg, dict(cache, hot_len=hot_len), topk)
+        out = out.reshape(b, 1, cfg.n_heads * hd).to(x1.dtype)
+        return p.wo(out), dict(cache, hot_len=hot_len)
     ids, ok = KLA.select_blocks(qg, cache["summ"], cache["n_blocks"], topk,
                                 gsel)
     out = KLA.lsm_decode_attention(qg, hot_k, hot_v, hot_len,
@@ -265,3 +317,86 @@ def lsm_decode_self_attention(cfg, p: Attention, x1, cache: dict, pos,
                                    hd ** -0.5)
     out = out.reshape(b, 1, cfg.n_heads * hd).to(x1.dtype)
     return p.wo(out), dict(cache, hot_len=hot_len)
+
+
+def _lsm_cold_stats(cfg, qg, blk_k, blk_v, ids, ok, scale: float):
+    """Cold-block attention stats, computed where the blocks live (the
+    reference's `_lsm_cold_stats_shardmap` body, per rank).
+
+    qg (B, H, hd); blk_k/v (B, NB, mu, KV, hd), the same full cache on
+    every rank; ids, ok (B, KV, topk) global block ids. This rank (data
+    rank r, model rank m) reads its blocks r*NBl .. (r+1)*NBl - 1 for
+    its kv heads m*KVl .. (m+1)*KVl - 1; its online-softmax stats merge
+    over the data axis with one all-reduce(MAX) and two all-reduce(SUM)
+    (O(KV*g*hd) bytes, not block payloads), then gather over the model
+    axis. A rank holding none of the selected blocks has m = NEG_INF
+    (-1e30, not -inf) and exp(m - m_global) = 0 weights it out. The
+    probabilities stay f32 in the products with V, as in the kernel (the
+    reference rounds them to the cache dtype for its bf16 products; in
+    f32 the two are one). Returns (m, l (B, KV, g), acc (B, KV, g, hd))
+    in f32.
+    """
+    b, nb, mu, kv, hd = blk_k.shape
+    group = cfg.n_heads // kv
+    topk = ids.shape[-1]
+    nbl, kvl = nb // RT.data_size(), kv // RT.model_size()
+    r, m = RT.axis_rank("data"), RT.axis_rank("model")
+    heads = slice(m * kvl, (m + 1) * kvl)
+    bk = blk_k[:, r * nbl:(r + 1) * nbl, :, heads]           # (B,NBl,mu,KVl,hd)
+    bv = blk_v[:, r * nbl:(r + 1) * nbl, :, heads]
+    loc = ids[:, heads] - r * nbl
+    mine = (loc >= 0) & (loc < nbl) & ok[:, heads]          # (B, KVl, topk)
+    locc = loc.clamp(0, nbl - 1)
+    # block locc[b, k, t]'s rows of kv head k: (B, KVl, topk, mu, hd)
+    bi = torch.arange(b, device=ids.device)[:, None, None]
+    ki = torch.arange(kvl, device=ids.device)[None, :, None]
+    sel_k = bk.permute(0, 1, 3, 2, 4)[bi, locc, ki]
+    sel_v = bv.permute(0, 1, 3, 2, 4)[bi, locc, ki]
+    q_l = qg.reshape(b, kv, group, hd)[:, heads].float()
+    s = torch.einsum("bkgd,bktmd->bkgtm", q_l, sel_k.float()) * scale
+    s = torch.where(mine[:, :, None, :, None], s, NEG_INF)
+    s = s.reshape(b, kvl, group, topk * mu)
+    m_p = s.amax(-1)                                         # (B, KVl, g)
+    p_att = torch.exp(s - m_p[..., None])
+    p_att = torch.where(torch.isfinite(s), p_att, 0.0)
+    l_p = p_att.sum(-1)
+    acc_p = torch.einsum("bkgs,bksd->bkgd", p_att,
+                         sel_v.reshape(b, kvl, topk * mu, hd).float())
+    # merge across data shards: stats only
+    m_g = RT.all_reduce_(m_p.clone(), "data", op=RT.MAX)
+    corr = torch.exp(m_p - m_g)
+    l_g = RT.all_reduce_(l_p * corr, "data")
+    acc_g = RT.all_reduce_(acc_p * corr[..., None], "data")
+    return (RT.all_gather(m_g, "model", 1), RT.all_gather(l_g, "model", 1),
+            RT.all_gather(acc_g, "model", 1))
+
+
+def _lsm_stats(cfg, qg, cache: dict, topk: int):
+    """The sharded-stats branch of tiered decode (the reference's
+    `use_stats`): the global top-k blocks, their stats from
+    `_lsm_cold_stats`, then the hot window's stats (below the new
+    hot_len) merged with them by online softmax. qg (B, H, hd) in the
+    cache dtype; the new K/V already in the hot window. -> (B, H, hd)
+    f32."""
+    b, h, hd = qg.shape
+    kv = cfg.n_kv
+    ids, ok = KLA.select_blocks(qg, cache["summ"], cache["n_blocks"], topk)
+    m_c, l_c, acc_c = _lsm_cold_stats(cfg, qg, cache["blk_k"],
+                                      cache["blk_v"], ids, ok, hd ** -0.5)
+    hot_k, hot_v = cache["hot_k"], cache["hot_v"]
+    w = hot_k.shape[1]
+    q4 = qg.reshape(b, kv, h // kv, hd).float()
+    sf = torch.einsum("bkgd,bskd->bkgs", q4, hot_k.float()) * hd ** -0.5
+    hot_mask = torch.arange(w, device=qg.device)[None, :] \
+        < cache["hot_len"][:, None]
+    sf = torch.where(hot_mask[:, None, None, :], sf, NEG_INF)
+    m_h = sf.amax(-1)
+    p_h = torch.exp(sf - m_h[..., None])
+    l_h = p_h.sum(-1)
+    acc_h = torch.einsum("bkgs,bskd->bkgd", p_h, hot_v.float())
+    mx = torch.maximum(m_h, m_c)
+    ch, cc = torch.exp(m_h - mx), torch.exp(m_c - mx)
+    num = acc_h * ch[..., None] + acc_c * cc[..., None]
+    den = l_h * ch + l_c * cc
+    out = num / den.clamp_min(1e-30)[..., None]
+    return out.reshape(b, h, hd)

@@ -37,6 +37,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed import runtime as RT
 from repro_torch.models import attention as ATT
 from repro_torch.models import ssm as SSM
 from repro_torch.models.config import check_supported
@@ -176,8 +177,45 @@ def _layer(train: bool, fn, *args):
     return fn(*args)
 
 
+def _lookup_rows(table, tokens):
+    """`table[tokens]` on a mesh, per rank: each rank looks its token rows
+    (batch-sharded tokens keep that layout, others are gathered) up in
+    its own rows of the vocab-sharded table, zero where a token lies
+    outside them, and the partial rows are summed over the table's axes.
+    (DTensor's own indexing and embedding rules each miss a case of this
+    on some torch release.)"""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    mesh = table.device_mesh
+    if not RT.is_dtensor(tokens):
+        tokens = DTensor.from_local(tokens, mesh, [Replicate()] * mesh.ndim,
+                                    run_check=False)
+    t_place = [p if p == Shard(0) else Replicate() for p in tokens.placements]
+    tok = tokens.redistribute(mesh, t_place).to_local()
+    # each rank looks up its own token rows: the gradient of its table
+    # rows sums over the batch's axes
+    rows = RT.grad_sum(table.to_local(), [
+        n for n, t in zip(mesh.mesh_dim_names, t_place) if t != Replicate()])
+    _, offset = compute_local_shape_and_global_offset(
+        table.shape, mesh, table.placements)
+    loc = tok.long() - offset[0]
+    ok = (loc >= 0) & (loc < rows.shape[0])
+    x = torch.where(ok[..., None], rows[loc.clamp(0, rows.shape[0] - 1)], 0)
+    split = [n for n, p in zip(mesh.mesh_dim_names, table.placements)
+             if isinstance(p, Shard)]
+    if any(t != Replicate() for n, t in zip(mesh.mesh_dim_names, t_place)
+           if n in split):
+        raise ValueError("tokens and table rows sharded over one mesh axis")
+    return DTensor.from_local(RT.psum(x, split), mesh, t_place,
+                              run_check=False)
+
+
 def _embed(cfg, model: LM, tokens: torch.Tensor) -> torch.Tensor:
-    x = model.embed[tokens]
+    if RT.is_dtensor(model.embed):
+        x = _lookup_rows(model.embed, tokens)
+    else:
+        x = model.embed[tokens]
     if cfg.embed_scale:
         # the scale rounds to the activation dtype first, as in jnp
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
@@ -366,13 +404,20 @@ def _stack(cfg, model: LM, batch: dict, caches: dict | None):
     return apply_norm(cfg, model.final_norm, x), aux
 
 
+def _stack_spmd(cfg, model: LM, batch: dict, caches: dict | None):
+    """`_stack` in `RT.spmd()`: on DTensor parameters (a mesh registered)
+    the plain tensors it makes (positions, masks) join as replicated."""
+    with RT.spmd():
+        return _stack(cfg, model, batch, caches)
+
+
 def forward(cfg, model: LM, batch: dict):
     """-> (hidden (B, S, d), aux_loss f32 scalar summed over the layers).
     When autograd records (grad mode on, a parameter that requires grad)
     each layer is a checkpoint, so the backward holds one layer's
     activations at a time beside each layer's input; the hybrid's
     shared block gets the sum of its applications' gradients."""
-    return _stack(cfg, model, batch, None)
+    return _stack_spmd(cfg, model, batch, None)
 
 
 @torch.no_grad()
@@ -386,7 +431,7 @@ def forward_collect(cfg, model: LM, batch: dict):
     b, s = torch.as_tensor(batch["tokens"]).shape
     t = batch["frames"].shape[1] if cfg.family == "encdec" else None
     caches = init_decode_caches(cfg, b, s, "dense", model.device, enc_len=t)
-    hidden, _ = _stack(cfg, model, batch, caches)
+    hidden, _ = _stack_spmd(cfg, model, batch, caches)
     caches["pos"].fill_(s)
     return hidden, caches
 
@@ -403,7 +448,8 @@ def prefill_step(cfg, model: LM, batch: dict):
 def logits_full(cfg, model: LM, batch: dict) -> torch.Tensor:
     """Small-model convenience: full (B, S, vocab) logits."""
     hidden, _ = forward(cfg, model, batch)
-    return model.lm_head(hidden)[..., :cfg.vocab]
+    with RT.spmd():
+        return model.lm_head(hidden)[..., :cfg.vocab]
 
 
 def init_decode_caches(cfg, batch: int, max_len: int, kind: str = "dense",

@@ -12,6 +12,8 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed import runtime as RT
+
 NEG_BIG = -1e30               # a padded vocabulary column's logit
 
 
@@ -27,6 +29,12 @@ def _chunk_terms(h_c, y_c, lm_head, vocab: int):
     """One chunk -> (sum of -log p(label) over its valid labels, their
     count), both f32 scalars."""
     logits = (h_c @ lm_head).float()                      # (B, c, Vp)
+    # on a mesh the vocab axis is model-sharded; the label gather has no
+    # DTensor rule there, so the chunk's logits gather that axis first
+    if RT.is_dtensor(logits):
+        b = logits.shape[0]
+        logits = RT.constrain(logits, "dp" if b % RT.dp_size() == 0
+                              else None, None, None)
     col_ok = torch.arange(logits.shape[-1], device=logits.device) < vocab
     logits = torch.where(col_ok, logits, NEG_BIG)
     lse = torch.logsumexp(logits, dim=-1)                 # (B, c)

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed import runtime as RT
 from repro_torch.models import lm
 from repro_torch.train.loss import chunked_cross_entropy
 from repro_torch.train.optimizer import (adamw_update, clip_scale,
@@ -58,6 +59,11 @@ def make_train_step(cfg, base_lr: float = 3e-4, warmup: int = 100,
     metrics {"loss" (ce), "aux_loss", "grad_norm" (before clipping), "lr"
     (at the updated step)}, 0-d tensors on the model's device).
 
+    On a mesh (DTensor parameters laid out by
+    `distributed.sharding.param_pspecs`, moments by `zero1_pspecs`, the
+    batch by `batch_pspecs`) the same step runs under `RT.spmd()`, and
+    DTensor's propagation places the collectives.
+
     accum_steps > 1: the batch splits into `accum_steps` contiguous
     microbatches (along every entry whose first dimension is the batch)
     run one after another; their gradients, ce and aux add up in f32,
@@ -67,6 +73,10 @@ def make_train_step(cfg, base_lr: float = 3e-4, warmup: int = 100,
     lr_fn = cosine_schedule(base_lr, warmup, total_steps)
 
     def train_step(model, opt_state, batch):
+        with RT.spmd():
+            return _step(model, opt_state, batch)
+
+    def _step(model, opt_state, batch):
         if accum_steps == 1:
             _, ce, aux, grads = value_and_grad(cfg, model, batch)
         else:

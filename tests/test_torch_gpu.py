@@ -1286,3 +1286,108 @@ def test_replication_and_server_on_card_match_cpu(cuda, tmp_path, sharded):
         for got, want in zip(side, cpu_answers[0]):
             for a, b in zip(got, want):
                 np.testing.assert_array_equal(a, b)
+
+
+# --------------------------------------------------------------------------
+# distributed/: the mesh branches on a one-rank NCCL group
+# --------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def nccl_mesh():
+    """A (1, 1) (data, model) mesh over a one-rank NCCL group (NCCL puts
+    no two ranks on one card), or a skip; the group closes after the
+    module."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    import socket
+
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_process_group, make_host_mesh
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    init_process_group("cuda", rank=0, world_size=1,
+                       init_method=f"tcp://127.0.0.1:{port}")
+    yield make_host_mesh(1, 1, device="cuda")
+    dist.destroy_process_group()
+
+
+class _count:
+    """Counts the calls of `owner.name` under the context."""
+
+    def __init__(self, owner, name):
+        self.owner, self.name, self.calls = owner, name, 0
+
+    def __enter__(self):
+        real = self.real = getattr(self.owner, self.name)
+
+        def call(*a, **kw):
+            self.calls += 1
+            return real(*a, **kw)
+        setattr(self.owner, self.name, call)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.real)
+
+
+@pytest.mark.gpu
+def test_moe_mesh_branch_on_card_matches_single_device(nccl_mesh):
+    """qwen3-moe smoke on the card: `logits_full` with DTensor parameters
+    through `moe_ffn`'s mesh branch (every layer) against the
+    single-device path, max abs < 2e-4."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import runtime as RT
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.models import lm
+    from repro_torch.models import moe as MOE
+    cfg = get_config("qwen3-moe-30b-a3b").smoke()
+    model = lm.init_params(cfg, 0, device="cuda")
+    batch = {"tokens": torch.randint(0, cfg.vocab, (4, 32),
+                                     generator=torch.Generator().manual_seed(
+                                         1)).cuda()}
+    want = lm.logits_full(cfg, model, batch)
+    SH.distribute_model(model, nccl_mesh,
+                        SH.param_pspecs(cfg, model, nccl_mesh))
+    dbatch = SH.distribute(batch, nccl_mesh,
+                           SH.batch_pspecs(cfg, batch, nccl_mesh))
+    RT.set_axes(("data",), "model", nccl_mesh)
+    try:
+        with _count(MOE, "_moe_mesh") as branch:
+            got = lm.logits_full(cfg, model, dbatch).full_tensor()
+    finally:
+        RT.clear()
+    assert branch.calls == cfg.n_layers
+    assert float((got - want).abs().max()) < 2e-4
+
+
+@pytest.mark.gpu
+def test_lsm_stats_branch_on_card_matches_single_device(nccl_mesh):
+    """deepseek-7b smoke with kv 2, heads 4, b 1, a 128-token prompt: one
+    tiered decode step through the sharded-stats branch (every layer)
+    against the single-device branch (the kernel), < 2e-3."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import runtime as RT
+    from repro_torch.models import attention as ATT
+    from repro_torch.models import lm
+    from repro_torch.serving import lsm_from_dense
+    cfg = replace(get_config("deepseek-7b").smoke(), n_kv=2, n_heads=4)
+    model = lm.init_params(cfg, 0, device="cuda")
+    toks = torch.randint(0, cfg.vocab, (1, 129),
+                         generator=torch.Generator().manual_seed(0)).cuda()
+    _, dense = lm.prefill_step(cfg, model, {"tokens": toks[:, :128]})
+    caches = [lsm_from_dense(cfg, dense, 144) for _ in range(2)]
+    n0 = KLA.decode_attention.launches
+    want, _ = lm.decode_step(cfg, model, toks[:, 128], caches[0], kind="lsm")
+    assert KLA.decode_attention.launches - n0 == cfg.n_layers
+    RT.set_axes(("data",), "model", nccl_mesh)
+    try:
+        with _count(ATT, "_lsm_stats") as branch:
+            got, _ = lm.decode_step(cfg, model, toks[:, 128], caches[1],
+                                    kind="lsm")
+    finally:
+        RT.clear()
+    assert branch.calls == cfg.n_layers
+    assert float((got - want).abs().max()) < 2e-3

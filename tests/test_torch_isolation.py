@@ -1,6 +1,8 @@
 """The port stands alone: importing every `repro_torch` module (the
-training path's `train` and `data` among them) pulls in
-neither JAX nor the reference package (nor `ml_dtypes`: the snapshot
+training path's `train` and `data`, `distributed` and `launch` among
+them) and the process-kill twins (`tools/*_torch.py`; the failover
+demo twin runs at import, so its imports are read from its source)
+pulls in neither JAX nor the reference package (nor `ml_dtypes`: the snapshot
 codec and checkpoints carry bfloat16 without it), and the engine refuses
 to start without a CUDA card unless asked for the CPU, adaptive tuning
 or not."""
@@ -23,8 +25,25 @@ for name in mods + ["repro_torch.engine.wal", "repro_torch.checkpoint",
                     "repro_torch.train", "repro_torch.train.train_step",
                     "repro_torch.data"]:
     importlib.import_module(name)
-assert {"repro_torch.train.train_step", "repro_torch.data.pipeline"} \
+assert {"repro_torch.train.train_step", "repro_torch.data.pipeline",
+        "repro_torch.distributed.sharding", "repro_torch.distributed.runtime",
+        "repro_torch.distributed.compress", "repro_torch.distributed.elastic",
+        "repro_torch.distributed.pipeline", "repro_torch.launch.mesh"} \
     <= set(mods), mods
+import ast, importlib.util
+for tool in ("recovery_smoke_torch", "replication_smoke_torch"):
+    spec = importlib.util.spec_from_file_location(tool, f"tools/{tool}.py")
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+for script in ("tools/recovery_smoke_torch.py",
+               "tools/replication_smoke_torch.py",
+               "examples/failover_demo_torch.py"):
+    for node in ast.walk(ast.parse(open(script).read())):
+        names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                 else [node.module or ""] if isinstance(node, ast.ImportFrom)
+                 else [])
+        for n in names:
+            top = n.split(".")[0]
+            assert top not in ("jax", "repro", "jaxlib"), (script, n)
 import tempfile
 import torch
 from repro_torch.checkpoint import CheckpointManager
@@ -60,7 +79,7 @@ if not torch.cuda.is_available():
 def test_port_imports_neither_jax_nor_reference():
     env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin",
            "JAX_PLATFORMS": "cpu"}
-    out = subprocess.run([sys.executable, "-c", _PROBE], env=env,
+    out = subprocess.run([sys.executable, "-c", _PROBE], env=env, cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
     assert "leaked: []" in out.stdout
