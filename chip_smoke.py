@@ -314,6 +314,16 @@ Phases, in order; any failure raises and exits non-zero:
              as concurrent subprocesses on the card, started before the
              mesh phase (their output in build/mirrors/): exit 0 and
              the reference twin's success line.
+  dryrun   — `repro_torch.launch.dryrun` in a child process (the mesh
+             phase opened NCCL here) on fake CUDA tensors over a fake
+             (1, 1) world, at two shapes measured above: the `train`
+             step and `lm_serve`'s tiered decode step. The estimate's
+             argument bytes must equal the real weights, AdamW state and
+             batch, its peak be within 25% of `train`'s
+             max_memory_allocated; `train_mfu` (model FLOPs / step time
+             / the bf16 peak) and `decode_hbm_share` (bytes_floor /
+             decode ms a step / HBM's rate) are printed beside the card
+             and must be finite and at most 1.
              The kernel's launches are counted by path (lm_serve,
              lm_agree, moe_serve, moe_agree, hybrid_serve, hybrid_agree,
              hybrid_agree_f32, vlm_serve, vlm_agree, encdec_serve,
@@ -340,11 +350,9 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory (NVIDIA data sheet)
 LOOKUP_BATCH = 4096
 SCAN_BATCH = 32
 KEY_BITS = 24
-F32_FLOPS = 67e12               # H100 SXM float32 outside the tensor cores
 LM_ARCH = "phi4-mini-3.8b"
 MOE_SERVE_ARCH = "granite-moe-1b-a400m"  # full width and depth
 MOE_AGREE_ARCH = "qwen3-moe-30b-a3b"     # full width and depth, ~60.1 GB
@@ -394,8 +402,12 @@ def phase(name: str):
         log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
 
 
-def bound_ms(n_bytes: float) -> float:
-    return n_bytes / HBM_BYTES_PER_S * 1e3
+def bound_ms(name: str, **shape) -> float:
+    """The least time (ms) one call of kernel `name` could take on the
+    card, from `launch.cost.kernel_cost` at `shape` and the card's peaks
+    (`launch.cost.bound_ms`)."""
+    from repro_torch.launch import cost
+    return cost.bound_ms(*cost.kernel_cost(name, **shape))[0]
 
 
 def wall_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -588,8 +600,8 @@ def fence_case(name, keys, counts, qs, mu, stride: int = 1):
         ms=device_ms(lookup, 50), wall_ms=wall_ms(lookup, 50),
         plain_ms=device_ms(lambda: KFL.fence_lookup_plain(
             qs, fences, keys, counts, mu), 5),
-        bound_ms=bound_ms(q_n * 4 + d_n * 4 + d_n * q_n * 4
-                          + (fence_words + key_words) * 4),
+        bound_ms=bound_ms("fence_lookup", q=q_n, runs=d_n,
+                          fence_words=fence_words, key_words=key_words),
         library_ms=device_ms(lambda: torch.searchsorted(keys, qs_d), 20))
     log(f"fence_lookup {json.dumps(rec)}")
     if rec["max_abs_err"]:
@@ -669,7 +681,8 @@ def range_case(name, rng, device, q_n, c_n, n_seg):
         wall_ms=wall_ms(kernel, 50),
         rounds_ms=device_ms(rounds, 20), rounds_wall_ms=wall_ms(rounds, 20),
         plain_ms=device_ms(lambda: KRM.range_merge_plain(*lanes, True), 10),
-        bound_ms=bound_ms(filled * 16 + off.size * 4 + q_n * c_n * 17),
+        bound_ms=bound_ms("range_merge", rows=q_n, lanes=c_n,
+                          filled=filled, parts=off.shape[1] - 1),
         library_ms=device_ms(lambda: torch.sort(comp, dim=1, stable=True),
                              50))
     rec["ms"] = sum(rec["ms_by_kernel"].values())
@@ -865,7 +878,8 @@ def bloom_case(name, stacks, qs, parent):
         max_abs_err=max_abs_err(tuple(got), tuple(want)),
         ms=device_ms(kernel, 50), wall_ms=wall_ms(kernel, 50),
         plain_ms=device_ms(plain, 10),
-        bound_ms=bound_ms(q_n * 4 + rows * q_n + ids.numel() * 4))
+        bound_ms=bound_ms("bloom_probe", q=q_n, rows=rows,
+                          words=ids.numel()))
     flat = torch.cat([b.reshape(-1) for b, _, _ in stacks])
     rec["gather_floor_ms"] = device_ms(lambda: flat[ids], 50)
     del flat
@@ -1088,7 +1102,7 @@ def kernel_phase(p, device, rng, parent_bloom=None):
             rounds_launches=math.ceil(math.log2(n_runs)),
             plain_ms=device_ms(lambda lanes=lanes, ix=ix, n_runs=n_runs:
                                KHM.kway_merge_plain(*lanes, ix, n_runs), 5),
-            bound_ms=bound_ms(n * 16 * 2),
+            bound_ms=bound_ms("heap_merge", lanes=n),
             library_ms=device_ms(lambda comp=comp: torch.sort(
                 comp, stable=True), 10)))
         log(f"heap_merge {json.dumps(cases[-1])}")
@@ -2349,12 +2363,12 @@ def sharded_queries(eng, rng, pool, per_shard: int):
     return np.stack(rows).astype(np.int32)
 
 
-def sharded_case(name, shape, launch, plain, singles, n_bytes, library,
+def sharded_case(name, shape, launch, plain, singles, work: dict, library,
                  kernel_launches):
     """One shard-batched kernel shape: the one call `launch` (all shards)
     against `plain` bitwise and against `singles` (S single-tree calls,
-    one a shard) bitwise, device and wall times of each, and the byte
-    bound."""
+    one a shard) bitwise, device and wall times of each, and the bound
+    (`bound_ms(**work)`)."""
     import torch
     counter, per = kernel_launches
     n0 = counter.launches
@@ -2371,7 +2385,7 @@ def sharded_case(name, shape, launch, plain, singles, n_bytes, library,
         single_max_abs_err=max_abs_err(got, one),
         ms=device_ms(launch, 20), wall_ms=wall_ms(launch, 20),
         single_ms=device_ms(singles, 20), single_wall_ms=wall_ms(singles, 20),
-        plain_ms=device_ms(plain, 3), bound_ms=bound_ms(n_bytes),
+        plain_ms=device_ms(plain, 3), bound_ms=bound_ms(**work),
         library_ms=device_ms(library, 10) if library else None)
     log(f"sharded kernel {json.dumps(rec)}")
     if rec["max_abs_err"] or rec["single_max_abs_err"]:
@@ -2419,7 +2433,8 @@ def sharded_kernel_cases(eng, device, rng, pool):
         lambda: [torch.stack(x) for x in zip(*[
             KBP.bloom_probe_levels([(b[s], k, bits) for b, k, bits in stacks],
                                    qs[s]) for s in range(s_n)])],
-        words * 4 + qs.numel() * 4 + rows * q_n, None,
+        dict(name="bloom_probe", q=q_n, rows=rows // s_n, words=words,
+             shards=s_n), None,
         (KBP.bloom_probe_levels, 1))
 
     last = st.levels[-1]
@@ -2446,8 +2461,8 @@ def sharded_kernel_cases(eng, device, rng, pool):
         lambda: torch.stack([KFL.fence_lookup_many(
             qs[s], fences[s], last.keys[s], last.counts[s], mu)
             for s in range(s_n)]),
-        q_n * s_n * 4 * (1 + d_n) + s_n * d_n * 4
-        + (fence_words + key_words) * 4,
+        dict(name="fence_lookup", q=q_n, runs=d_n, fence_words=fence_words,
+             key_words=key_words, shards=s_n),
         lambda: torch.searchsorted(rows_k, qs_d), (KFL.fence_lookup_many, 1))
     del qs_d
 
@@ -2476,7 +2491,7 @@ def sharded_kernel_cases(eng, device, rng, pool):
         lambda: tuple(torch.stack(x) for x in zip(*[
             KHM.kway_merge(*(a[s] for a in batch), ix[s], n_runs)
             for s in range(s_n)])),
-        s_n * n * 16 * 2,
+        dict(name="heap_merge", lanes=s_n * n),
         lambda: torch.sort(comp, dim=1, stable=True),
         (KHM.kway_merge, 2))
     del batch, ix, comp
@@ -2500,7 +2515,8 @@ def sharded_kernel_cases(eng, device, rng, pool):
         lambda: KRM.range_merge(k, v, w, s, o, True),
         lambda: KRM.range_merge_plain(k, v, w, s, o, True),
         per_shard,
-        filled * 16 + o.numel() * 4 + k.numel() * 17,
+        dict(name="range_merge", rows=k.shape[0], lanes=c_n, filled=filled,
+             parts=n_seg),
         lambda: torch.sort(comp, dim=1, stable=True),
         (KRM.range_merge, 1))
     return out
@@ -3641,6 +3657,7 @@ def lsm_kernel_cases(device, seed: int, cfg, which, dense=None) -> list:
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.lsm_attention import ops as KLA
+    from repro_torch.launch import cost
 
     b, h, kv, dh = 2, cfg.n_heads, cfg.n_kv, cfg.hd
     w, mu, topk = cfg.lsm_hot_window, cfg.lsm_block, cfg.lsm_topk
@@ -3672,7 +3689,7 @@ def lsm_kernel_cases(device, seed: int, cfg, which, dense=None) -> list:
 
             def plain():
                 return KLA.decode_attention_plain(q, k, v, valid, scale)
-            extra = 2 * b * 4                        # q/out below; lengths
+            mode = dict(mode="lengths")
             ks, vs = k, v
         else:
             args, n_valid = tiered_case(device, gen, dt, w, mu, topk, kv,
@@ -3690,7 +3707,7 @@ def lsm_kernel_cases(device, seed: int, cfg, which, dense=None) -> list:
             if name == "tiered":
                 def kernel():
                     return KLA.lsm_decode_attention(*args, scale)
-                extra = ids.numel() * 8 + ok.numel() + b * 4
+                mode = dict(mode="tiered", topk=ids.shape[-1])
 
                 def block_off():
                     ok2 = ok.clone()
@@ -3703,7 +3720,7 @@ def lsm_kernel_cases(device, seed: int, cfg, which, dense=None) -> list:
 
                 def kernel():
                     return KLA.decode_attention(q, k, v, valid, scale)
-                extra = valid.numel()
+                mode = dict(mode="bitmap", length=length)
         got = kernel()
         torch.cuda.synchronize()
         want = plain()
@@ -3728,11 +3745,11 @@ def lsm_kernel_cases(device, seed: int, cfg, which, dense=None) -> list:
             fault_err[fault] = float((bad.float() - ref.float()).abs().max())
         del skipped, pairs
         out_abs = want.float().abs()
-        # bytes: q and out once, K and V once for each valid (b, kv, l)
-        # row (the kernel never reads another), and what locates the rows
-        elt = q.element_size()
-        n_bytes = 2 * n_valid * dh * elt + 2 * b * h * dh * elt + extra
-        n_ops = 4 * n_valid * (h // kv) * dh
+        # work: q and out once, K and V once for each valid (b, kv, l)
+        # row (the kernel never reads another), what locates the rows
+        n_ops, n_bytes = cost.kernel_cost(
+            "lsm_attention", b=b, h=h, kv=kv, dh=dh, rows=n_valid,
+            elt=q.element_size(), **mode)
         # SDPA yardstick on the (gathered) K/V: heads-major K/V and a
         # per-q-head boolean mask, made outside the timed call
         kh, vh = (t.transpose(1, 2).contiguous() for t in (ks, vs))
@@ -3747,17 +3764,15 @@ def lsm_kernel_cases(device, seed: int, cfg, which, dense=None) -> list:
             plain_ms=device_ms(plain, 5),
             library_ms=device_ms(lambda: F.scaled_dot_product_attention(
                 q4, kh, vh, attn_mask=mask, enable_gqa=True), 20),
-            bytes_bound_ms=bound_ms(n_bytes),
-            ops_bound_ms=n_ops / F32_FLOPS * 1e3)
+            bytes_bound_ms=cost.bound_ms(0, n_bytes)[0],
+            ops_bound_ms=cost.bound_ms(n_ops, 0)[0])
         if name == "tiered":
             def replaced():
                 kk, vv, val = KLA.tiered_inputs(*args[1:8])
                 return KLA.decode_attention(q, kk, vv, val, scale)
             rec["replaced_ms"] = device_ms(replaced, 20)
             rec["replaced_wall_ms"] = wall_ms(replaced, 20)
-        rec["bound_ms"] = max(rec["bytes_bound_ms"], rec["ops_bound_ms"])
-        rec["bound_by"] = ("bytes" if rec["bytes_bound_ms"]
-                           >= rec["ops_bound_ms"] else "operations")
+        rec["bound_ms"], rec["bound_by"] = cost.bound_ms(n_ops, n_bytes)
         log(f"lsm_kernel {json.dumps(rec)}")
         cases.append(rec)
         del q, k, v, ks, vs, kh, vh, valid, mask, got, want
@@ -4574,6 +4589,11 @@ def train_phase(device, seed: int, counters: dict, cfg=None) -> dict:
     opt = adamw_init(model)
     step = make_train_step(cfg, base_lr=TRAIN_LR, warmup=TRAIN_WARMUP)
     batch = next(TokenStream(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ, seed=0))
+    # the step's arguments: weights, AdamW moments and step, the batch
+    argument_bytes = (sum(t.nbytes for t in model.parameters())
+                      + sum(t.nbytes for t in (*opt.mu.values(),
+                                               *opt.nu.values(), opt.step))
+                      + sum(a.nbytes for a in batch.values()))
     for fn in counters.values():
         fn.launches = 0
     events, metrics = [], []
@@ -4606,7 +4626,7 @@ def train_phase(device, seed: int, counters: dict, cfg=None) -> dict:
                lrs=[float(m["lr"]) for m in metrics],
                first_step_ms=ms[0], step_ms=steady, step_ms_each=ms,
                tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / steady * 1e3,
-               launches=launches,
+               launches=launches, argument_bytes=argument_bytes,
                max_memory_allocated=torch.cuda.max_memory_allocated())
     busy, by_name = flow_busy(lambda: step(model, opt, batch))
     rec.update(busy_step=busy,
@@ -4663,6 +4683,88 @@ def held(what, got, got_params, got_mu, want, want_params, want_mu,
             or errs[worst] > bound):
         raise AssertionError(f"{what}: {out}")
     return out
+
+
+DRYRUN_CELLS = {   # the dry run of two shapes this smoke measures for real
+    "train": (TRAIN_ARCH, dict(kind="train", seq=TRAIN_SEQ,
+                                batch=TRAIN_BATCH)),
+    "lm_serve": (LM_ARCH, dict(kind="decode", seq=SERVE_PROMPT + SERVE_STEPS,
+                               batch=2, decode_kind="lsm")),
+}
+PEAK_EST_TOL = 0.25             # the dry run's peak against the measured
+
+
+def dryrun_child(out: str) -> int:
+    """`--dryrun-child JSON`: `launch.dryrun` of DRYRUN_CELLS on fake CUDA
+    tensors over a fake (1, 1) world (a process of its own: the `mesh`
+    phase opened NCCL in the parent) -> the records in JSON. (Without a
+    card the tensors are fake CPU tensors: a rehearsal.)"""
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch.mesh import make_host_mesh
+
+    mesh = make_host_mesh(1, 1, device=DR.fake_device(), fake=True)
+    recs = {key: DR.run_cell(arch, key, False, force=True, spec=spec,
+                             mesh=mesh, out_dir=ROOT / "build" / "dryrun")
+            for key, (arch, spec) in DRYRUN_CELLS.items()}
+    Path(out).write_text(json.dumps(recs))
+    return 0 if all("error" not in r for r in recs.values()) else 1
+
+
+def dryrun_phase(train: dict, serve: dict, card: str) -> dict:
+    """`dryrun`: the dry run's estimate of the `train` phase's step
+    (Granite-MoE-1B-A400M, 4 x 256) and of `lm_serve`'s tiered decode
+    step (Phi-4-mini, batch 2) against what those phases measured: the
+    argument bytes exactly the real weights, AdamW state and batch; the
+    estimated peak within PEAK_EST_TOL of `max_memory_allocated`;
+    `train_mfu` = model FLOPs / step s / the bf16 peak and
+    `decode_hbm_share` = bytes_floor / decode s a step / HBM's rate,
+    each finite and at most 1 (above the peak, the count is wrong)."""
+    from repro_torch.launch import cost
+
+    out = ROOT / "build" / "dryrun" / "smoke.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                           "--dryrun-child", str(out)],
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode:
+        raise AssertionError(f"dryrun child exited {proc.returncode}: "
+                             f"{proc.stdout[-2000:]}{proc.stderr[-3000:]}")
+    recs = json.loads(out.read_text())
+    t, d = recs["train"], recs["lm_serve"]
+    est_args = t["memory"]["argument_size_in_bytes"]
+    peak_ratio = (t["memory"]["peak_size_in_bytes"]
+                  / train["max_memory_allocated"])
+    shares = {
+        "train_mfu": t["model_flops"] / (train["step_ms"] * 1e-3)
+        / cost.PEAK_BF16_FLOPS,
+        "decode_hbm_share": d["bytes_floor"]
+        / (serve["decode_ms_per_step"] * 1e-3) / cost.HBM_BYTES_PER_S}
+    rec = dict(
+        train_argument_bytes=est_args,
+        train_argument_bytes_real=train["argument_bytes"],
+        train_peak_bytes=t["memory"]["peak_size_in_bytes"],
+        train_peak_bytes_real=train["max_memory_allocated"],
+        train_peak_ratio=peak_ratio,
+        train_model_flops=t["model_flops"], train_step_ms=train["step_ms"],
+        train_hlo_flops=t["hlo_flops_per_dev"],
+        decode_bytes_floor=d["bytes_floor"],
+        decode_ms_per_step=serve["decode_ms_per_step"],
+        decode_kernels=d["kernels"], trace_s=[t["compile_s"],
+                                              d["compile_s"]], **shares)
+    for k, v in shares.items():
+        log(f"{k} = {v!r} [{card}]")
+    if est_args != train["argument_bytes"]:
+        raise AssertionError(f"dryrun: argument bytes {est_args}, the real "
+                             f"step's {train['argument_bytes']}")
+    if abs(peak_ratio - 1) > PEAK_EST_TOL:
+        raise AssertionError(f"dryrun: estimated peak / measured "
+                             f"{peak_ratio:.3f}, outside 1 +- {PEAK_EST_TOL}")
+    bad = {k: v for k, v in shares.items()
+           if not (math.isfinite(v) and 0 < v <= 1)}
+    if bad:
+        raise AssertionError(f"dryrun: a share above the peak or not "
+                             f"finite (the count is wrong): {bad}")
+    return rec
 
 
 def train_agree_phase(device, seed: int, cfg=None,
@@ -5160,7 +5262,12 @@ def main() -> int:
     ap.add_argument("--replica-leader", metavar="DIR",
                     help=argparse.SUPPRESS)   # the replica kill's child
     ap.add_argument("--replica-port", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--dryrun-child", metavar="JSON",
+                    help=argparse.SUPPRESS)   # the dryrun phase's child
     args = ap.parse_args()
+    if args.dryrun_child:
+        sys.path.insert(0, str(ROOT / "src"))
+        return dryrun_child(args.dryrun_child)
     if args.durable_writer:
         sys.path.insert(0, str(ROOT / "src"))
         return writer_child(args.durable_writer, args.seed,
@@ -5419,6 +5526,9 @@ def main() -> int:
     for name in ("moe_mesh", "lsm_mesh", "train_mesh", "compress"):
         log(f"mesh {name} [{card}]: " + json.dumps(mesh[name]))
     log(f"mirrors [{card}]: " + json.dumps(mirrors))
+    with phase("dryrun"):
+        dry = dryrun_phase(train, serve, card)
+    log(f"dryrun [{card}]: " + json.dumps(dry))
 
     for rec in kernels:
         rec["launches"] = launches[rec["name"]]

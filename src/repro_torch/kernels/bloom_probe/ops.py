@@ -108,3 +108,13 @@ def bloom_probe_many(blooms: torch.Tensor, qs: torch.Tensor, k: int,
     `bloom_probe_levels` with one level (a leading shard dimension
     allowed, as there)."""
     return bloom_probe_levels([(blooms, k, bits)], qs)[0]
+
+
+def work(q: int, rows: int, words: int, shards: int = 1
+         ) -> tuple[float, float]:
+    """(FLOPs, bytes) of one call, each input byte it needs read once and
+    each output byte written once: `q` int32 keys and a verdict byte for
+    each of the `rows` filters probed (all levels), in each of `shards`
+    shards, and the `words` distinct filter words the probes read (this
+    call's data). Integer work: 0 FLOPs."""
+    return 0.0, float(shards * (q * 4 + rows * q) + words * 4)

@@ -114,3 +114,14 @@ def fence_lookup_many(qs, fences, keys, counts, mu: int) -> torch.Tensor:
 
 
 fence_lookup_many.launches = 0
+
+
+def work(q: int, runs: int, fence_words: int, key_words: int,
+         shards: int = 1) -> tuple[float, float]:
+    """(FLOPs, bytes) of one call, each input byte it needs read once and
+    each output byte written once: `q` int32 keys, the `runs` counts and
+    an int32 slot for each (run, key), in each of `shards` shards, and
+    the distinct fence and key words the searches read (this call's
+    data). Integer work: 0 FLOPs."""
+    return 0.0, float(shards * (q * 4 + runs * 4 + runs * q * 4)
+                      + (fence_words + key_words) * 4)

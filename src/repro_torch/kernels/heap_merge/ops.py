@@ -225,3 +225,10 @@ def heap_merge(keys2d, vals2d, wts2d, seqs2d, drop_annihilated: bool):
     src = mi.gather(-1, order).long()
     out_v = torch.where(ok, flat(vals2d).gather(-1, src), 0)
     return out_k, out_v, out_w, out_s, valid.sum(dim=-1).to(torch.int32)
+
+
+def work(lanes: int) -> tuple[float, float]:
+    """(FLOPs, bytes) of one merge of `lanes` lanes: every 16-byte record
+    (key, value, weight, sequence) read once and written once. Integer
+    work: 0 FLOPs."""
+    return 0.0, float(lanes * 16 * 2)

@@ -16,6 +16,15 @@ and, around them, as in the reference's `ops.py`:
   select_blocks           — score cold blocks by q . summary, top-k
   lsm_decode_attention_op — select, then `lsm_decode_attention`
 
+Two inputs take other paths, never the plain version in place of the
+kernel. DTensors (a mesh) run each rank's call on its `to_local()`
+shards: the batch and the kv heads keep their sharding where every input
+has it on a mesh axis, and any other axis is gathered first
+(`_per_rank`). `FakeTensor`s run nothing, and only inside a cost
+counter (`shape_only.active`; outside one they raise): the entry point
+returns an empty output of the kernel's shape and dtype and records the
+kernel's `work` (every row the call may read) with the counter.
+
 Every launch, whichever entry point, adds one to
 `decode_attention.launches`; the tiered entry point's also add one to
 `lsm_decode_attention.launches`. On the card the tiered path builds no
@@ -33,6 +42,7 @@ import math
 
 import torch
 
+from repro_torch import shape_only
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
@@ -152,10 +162,72 @@ def _launch(mode: int, q, k, v, *, valid=None, lens=None, blk_k=None,
     return out
 
 
+def _mesh_of(*ts):
+    """The mesh of the first DTensor among `ts`, or None."""
+    from torch.distributed.tensor import DTensor
+    return next((t.device_mesh for t in ts if isinstance(t, DTensor)), None)
+
+
+# (batch dim, kv-head dim) of each input kind; q's heads are kv-major, so
+# its head dim shards with the kv heads
+_Q, _DENSE_KV, _BY_KV, _BLOCKS, _ROWS = (0, 1), (0, 2), (0, 1), (0, 3), \
+    (0, None)
+
+
+def _per_rank(entry, mesh, tensors, dims, out_dims=_Q, **kw):
+    """`entry` on each rank's shards of DTensor `tensors` (q first;
+    plain tensors join as replicated), laid out by q: over a mesh axis
+    that shards q's batch every input is sharded on its batch, over one
+    that shards q's heads every input with kv heads on them (q's heads
+    are kv-major), and over any other every input is gathered first (a
+    kernel call reads whole rows and whole head groups). -> the result
+    (a tensor or a tuple) as DTensors laid out by `out_dims`, q's layout
+    unless given."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    q = tensors[0]
+    modes = [None] * mesh.ndim
+    if isinstance(q, DTensor):
+        modes = ["batch" if p == Shard(0) else "heads" if p == Shard(1)
+                 else None for p in q.placements]
+
+    def layout(d):
+        return tuple(Shard(d[0]) if m == "batch" else
+                     Shard(d[1]) if m == "heads" and d[1] is not None
+                     else Replicate() for m in modes)
+    local = []
+    for t, d in zip(tensors, dims):
+        if not isinstance(t, DTensor):
+            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+        local.append(t.redistribute(mesh, layout(d)).to_local())
+    out = entry(*local, **kw)
+    if isinstance(out, tuple):
+        return tuple(DTensor.from_local(o, mesh, layout(out_dims),
+                                        run_check=False) for o in out)
+    return DTensor.from_local(out, mesh, layout(out_dims), run_check=False)
+
+
+def _fake_call(q, rows: int, **shape) -> torch.Tensor:
+    """The kernel's output, empty, and its work recorded."""
+    b, h, dh = q.shape
+    shape_only.record_kernel("lsm_attention", *work(
+        b=b, h=h, dh=dh, rows=rows, elt=q.element_size(), **shape))
+    return torch.empty_like(q)
+
+
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      valid: torch.Tensor, scale: float) -> torch.Tensor:
     """q (B, H, dh); k, v (B, L, KV, dh); valid (B, KV, L) int8 ->
     (B, H, dh) in q's dtype. Any L >= 1; q, k, v share one dtype."""
+    mesh = _mesh_of(q, k, v, valid)
+    if mesh is not None:
+        return _per_rank(decode_attention, mesh, (q, k, v, valid),
+                         (_Q, _DENSE_KV, _DENSE_KV, _BY_KV), scale=scale)
+    if shape_only.active(q, k, v, valid):
+        b, length, kv = k.shape[:3]
+        return _fake_call(q, b * kv * length, kv=kv, mode="bitmap",
+                          length=length)
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, valid, scale)
     per_pass, groups = _check_qkv("decode_attention", q, k, v, 1)
@@ -177,7 +249,13 @@ def decode_attention_op(q, k, v, lengths, scale: float) -> torch.Tensor:
     """q (B, H, dh); k, v (B, L, KV, dh); lengths (B,) -> (B, H, dh):
     position l of row b is valid when l < lengths[b]. On the card the
     kernel reads `lengths` itself; no bitmap is built."""
+    mesh = _mesh_of(q, k, v, lengths)
+    if mesh is not None:
+        return _per_rank(decode_attention_op, mesh, (q, k, v, lengths),
+                         (_Q, _DENSE_KV, _DENSE_KV, _ROWS), scale=scale)
     b, length, kv = k.shape[:3]
+    if shape_only.active(q, k, v, lengths):
+        return _fake_call(q, b * kv * length, kv=kv, mode="lengths")
     if q.device.type == "cpu":
         valid = torch.arange(length)[None, :] < lengths[:, None]
         valid = valid[:, None, :].expand(b, kv, length).to(torch.int8)
@@ -208,6 +286,11 @@ def select_blocks(q, summaries, n_blocks, topk: int, groups: int = 1):
     top-k blocks (and any ties with the k-th) are attended, as without
     groups.
     """
+    mesh = _mesh_of(q, summaries, n_blocks)
+    if mesh is not None:       # per rank, as the kernel's entry points
+        return _per_rank(select_blocks, mesh, (q, summaries, n_blocks),
+                         (_Q, _DENSE_KV, _ROWS), out_dims=_BY_KV, topk=topk,
+                         groups=groups)
     b, h, dh = q.shape
     nb, kv = summaries.shape[1:3]
     qg = q.float().reshape(b, kv, h // kv, dh)
@@ -277,6 +360,17 @@ def lsm_decode_attention(q, hot_k, hot_v, hot_len, blk_k, blk_v, ids, ok,
     invalid position is read, so those rows may hold anything. Its
     launches count on `decode_attention.launches` and, apart, on
     `lsm_decode_attention.launches`."""
+    args = (q, hot_k, hot_v, hot_len, blk_k, blk_v, ids, ok)
+    mesh = _mesh_of(*args)
+    if mesh is not None:
+        return _per_rank(lsm_decode_attention, mesh, args,
+                         (_Q, _DENSE_KV, _DENSE_KV, _ROWS, _BLOCKS, _BLOCKS,
+                          _BY_KV, _BY_KV), scale=scale)
+    if shape_only.active(*args):
+        b, w, kv = hot_k.shape[:3]
+        topk = ids.shape[-1]
+        return _fake_call(q, b * kv * (w + topk * blk_k.shape[2]), kv=kv,
+                          mode="tiered", topk=topk)
     if q.device.type == "cpu":
         return lsm_decode_attention_plain(q, hot_k, hot_v, hot_len, blk_k,
                                           blk_v, ids, ok, scale)
@@ -317,3 +411,25 @@ def lsm_decode_attention_op(q, hot_k, hot_v, hot_len, blk_k, blk_v,
     ids, ok = select_blocks(q, summaries, n_blocks, topk)
     return lsm_decode_attention(q, hot_k, hot_v, hot_len.to(torch.int32),
                                 blk_k, blk_v, ids, ok, scale)
+
+
+def work(b: int, h: int, kv: int, dh: int, rows: int, elt: int, mode: str,
+         topk: int = 0, length: int = 0) -> tuple[float, float]:
+    """(FLOPs, bytes) of one call, each input byte it needs read once and
+    each output byte written once: K and V of its `rows` valid (batch,
+    kv head, position) rows, q and the output (`elt` bytes an element),
+    and what locates the rows — the lengths (mode "lengths"), the int8
+    bitmap of `length` positions ("bitmap"), or hot_len and the tiered
+    ids and ok of `topk` blocks ("tiered"). FLOPs 4·rows·(h / kv)·dh
+    (q·k and p·v)."""
+    if mode == "lengths":
+        extra = 2 * b * 4
+    elif mode == "tiered":
+        n_sel = b * kv * topk
+        extra = n_sel * 8 + n_sel + b * 4
+    elif mode == "bitmap":
+        extra = b * kv * length
+    else:
+        raise ValueError(f"lsm_attention mode {mode!r}")
+    n_bytes = 2 * rows * dh * elt + 2 * b * h * dh * elt + extra
+    return float(4 * rows * (h // kv) * dh), float(n_bytes)

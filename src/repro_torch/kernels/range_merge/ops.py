@@ -267,3 +267,13 @@ def range_merge(keys, vals, wts, seqs, offsets, drop_annihilated: bool):
 
 
 range_merge.launches = 0
+
+
+def work(rows: int, lanes: int, filled: int, parts: int
+         ) -> tuple[float, float]:
+    """(FLOPs, bytes) of one call over `rows` rows of `lanes` lanes: the
+    `filled` lanes that hold records (16 bytes each, this call's data),
+    the int32 offsets of `parts` segments a row, and every output lane
+    (16 bytes and a flag) written once. Integer work: 0 FLOPs."""
+    return 0.0, float(filled * 16 + rows * (parts + 1) * 4
+                      + rows * lanes * 17)

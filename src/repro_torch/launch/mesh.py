@@ -13,6 +13,12 @@ group, so that the sharding rules run anywhere; `dp_axes` and
 `axis_size` take either. The backend follows the device (NCCL for
 `cuda`, gloo for `cpu`); asking for `cuda` without a card raises, as
 `device.resolve_device` does.
+
+`fake=True` opens a world of the mesh's size on torch's "fake" backend
+instead, as rank 0 (`launch.dryrun`; the counterpart of the reference's
+`--xla_force_host_platform_device_count=512`): collectives return at
+once and move nothing, so a step over `FakeTensor`s traces each rank's
+shapes and collectives without the ranks or the cards.
 """
 from __future__ import annotations
 
@@ -71,10 +77,31 @@ def init_process_group(device=None, *, rank: int | None = None,
     return device
 
 
-def _make(shape: tuple[int, ...], names: tuple[str, ...], device):
+def init_fake_world(world_size: int) -> None:
+    """Open the default process group on the "fake" backend, rank 0 of
+    `world_size`; a fake world of another size is closed first, and any
+    other open group raises."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        if dist.get_backend() != "fake":
+            raise RuntimeError("a real process group is open; a fake world "
+                               "needs a process of its own")
+        if dist.get_world_size() == world_size:
+            return
+        dist.destroy_process_group()
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world_size)
+
+
+def _make(shape: tuple[int, ...], names: tuple[str, ...], device,
+          fake: bool = False):
     from torch.distributed.device_mesh import init_device_mesh
 
-    device = init_process_group(device)
+    if fake:
+        init_fake_world(math.prod(shape))
+        device = torch.device(device or "cuda")
+    else:
+        device = init_process_group(device)
     world = dist.get_world_size()
     if math.prod(shape) != world:
         raise ValueError(f"mesh {dict(zip(names, shape))} needs "
@@ -82,21 +109,26 @@ def _make(shape: tuple[int, ...], names: tuple[str, ...], device):
     return init_device_mesh(device.type, shape, mesh_dim_names=names)
 
 
-def make_production_mesh(*, multi_pod: bool = False, device=None):
+def make_production_mesh(*, multi_pod: bool = False, device=None,
+                         fake: bool = False):
     """(16, 16) over (data, model), or (2, 16, 16) over (pod, data,
-    model); raises unless the world has 256 or 512 ranks to match."""
+    model); raises unless the world has 256 or 512 ranks to match. With
+    `fake`, over a fake world of 256 or 512 ranks of `device`'s type
+    (the card's unless given)."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return _make(shape, axes, device)
+    return _make(shape, axes, device, fake)
 
 
 def make_host_mesh(data: int = 1, model: int = 1, pod: int = 0,
-                   device=None):
+                   device=None, fake: bool = False):
     """Small meshes: (data, model), or (pod, data, model) when `pod` is
-    given; the world size must equal the product."""
+    given; the world size must equal the product (with `fake`, a fake
+    world of that size is opened)."""
     if pod:
-        return _make((pod, data, model), ("pod", "data", "model"), device)
-    return _make((data, model), ("data", "model"), device)
+        return _make((pod, data, model), ("pod", "data", "model"), device,
+                     fake)
+    return _make((data, model), ("data", "model"), device, fake)
 
 
 def dp_axes(mesh) -> tuple[str, ...]:

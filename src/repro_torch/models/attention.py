@@ -201,6 +201,31 @@ def decode_cross_attention(cfg, p: Attention, x1, enc_k, enc_v):
 # decode: dense ragged cache
 # --------------------------------------------------------------------------
 
+def _write_slot(cache, at: int, row) -> None:
+    """cache[:, at] = row (B, KV, hd), in place. On a DTensor cache whose
+    position axis is sharded, each rank writes the shard that holds
+    position `at`, if it holds it: DTensor's own `cache[:, at]` would
+    gather that axis and write into the gathered copy."""
+    if not RT.is_dtensor(cache):
+        cache[:, at] = row.to(cache.dtype)
+        return
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    mesh = cache.device_mesh
+    if not RT.is_dtensor(row):
+        row = DTensor.from_local(row, mesh, [Replicate()] * mesh.ndim,
+                                 run_check=False)
+    # the row laid out as the cache without its position axis
+    place = [Shard(p.dim - (p.dim > 1)) if isinstance(p, Shard)
+             and p.dim != 1 else Replicate() for p in cache.placements]
+    local_row = row.redistribute(mesh, place).to_local()
+    shape, offset = compute_local_shape_and_global_offset(
+        cache.shape, mesh, cache.placements)
+    if offset[1] <= at < offset[1] + shape[1]:
+        cache.to_local()[:, at - offset[1]] = local_row.to(cache.dtype)
+
+
 def decode_self_attention(cfg, p: Attention, x1, cache_k, cache_v, pos,
                           at: int):
     """One-token decode with a dense KV cache.
@@ -223,15 +248,14 @@ def decode_self_attention(cfg, p: Attention, x1, cache_k, cache_v, pos,
     elif cfg.rope:
         q = apply_rope(q, pos[:, None], cfg.rope_theta)
         k1 = apply_rope(k1, pos[:, None], cfg.rope_theta)
-    cache_k[:, at] = k1[:, 0].to(cache_k.dtype)
-    cache_v[:, at] = v1[:, 0].to(cache_v.dtype)
+    _write_slot(cache_k, at, k1[:, 0])
+    _write_slot(cache_v, at, v1[:, 0])
     qg = q[:, 0].to(cache_k.dtype).contiguous()            # (B, H, hd)
     # the kv-head axis (H = KV x group, kv-major) carries the model
     # sharding where it divides, as the reference pins it
-    if cfg.n_kv % max(RT.model_size(), 1) == 0:
-        qg = RT.constrain(qg, "dp", "model", None)
-    else:
-        qg = RT.constrain(qg, "dp", None, None)
+    qg = RT.constrain(qg, "dp" if b % RT.dp_size() == 0 else None,
+                      "model" if cfg.n_kv % RT.model_size() == 0 else None,
+                      None)
     out = KLA.decode_attention_op(qg, cache_k, cache_v, pos + 1,
                                   cfg.hd ** -0.5)
     return p.wo(out.reshape(b, 1, cfg.n_heads * cfg.hd).to(x1.dtype))
@@ -299,12 +323,16 @@ def lsm_decode_self_attention(cfg, p: Attention, x1, cache: dict, pos,
     k1, v1 = _project_kv(cfg, p, x1)
     q = apply_rope(q, pos[:, None], cfg.rope_theta)
     k1 = apply_rope(k1, pos[:, None], cfg.rope_theta)
-    hot_k[:, at] = k1[:, 0].to(hot_k.dtype)
-    hot_v[:, at] = v1[:, 0].to(hot_v.dtype)
+    _write_slot(hot_k, at, k1[:, 0])
+    _write_slot(hot_v, at, v1[:, 0])
     hot_len = cache["hot_len"] + 1
 
-    # block selection (the filter probe): q in the cache dtype, f32 scores
+    # block selection (the filter probe): q in the cache dtype, f32 scores;
+    # on a mesh, heads sharded only where the kv heads divide |model|
     qg = q[:, 0].to(cache["blk_k"].dtype)                   # (B, H, hd)
+    qg = RT.constrain(qg, "dp" if b % RT.dp_size() == 0 else None,
+                      "model" if cfg.n_kv % RT.model_size() == 0 else None,
+                      None)
     if (RT.mesh() is not None and b == 1 and nb % RT.data_size() == 0
             and cfg.n_kv % RT.model_size() == 0 and cfg.lsm_dp_groups == 1):
         out = _lsm_stats(cfg, qg, dict(cache, hot_len=hot_len), topk)
@@ -335,6 +363,11 @@ def _lsm_cold_stats(cfg, qg, blk_k, blk_v, ids, ok, scale: float):
     reference rounds them to the cache dtype for its bf16 products; in
     f32 the two are one). Returns (m, l (B, KV, g), acc (B, KV, g, hd))
     in f32.
+
+    DTensor blocks (laid out by `cache_pspecs`: the block axis over data,
+    the kv heads over model) are read as this rank's own shards, which
+    are those same blocks and heads; qg, ids and ok are then gathered
+    whole.
     """
     b, nb, mu, kv, hd = blk_k.shape
     group = cfg.n_heads // kv
@@ -342,8 +375,13 @@ def _lsm_cold_stats(cfg, qg, blk_k, blk_v, ids, ok, scale: float):
     nbl, kvl = nb // RT.data_size(), kv // RT.model_size()
     r, m = RT.axis_rank("data"), RT.axis_rank("model")
     heads = slice(m * kvl, (m + 1) * kvl)
-    bk = blk_k[:, r * nbl:(r + 1) * nbl, :, heads]           # (B,NBl,mu,KVl,hd)
-    bv = blk_v[:, r * nbl:(r + 1) * nbl, :, heads]
+    if RT.is_dtensor(blk_k):
+        bk, bv = (_own_blocks(t) for t in (blk_k, blk_v))
+        qg, ids, ok = (_whole(t) for t in (qg, ids, ok))
+    else:
+        # (B, NBl, mu, KVl, hd)
+        bk = blk_k[:, r * nbl:(r + 1) * nbl, :, heads]
+        bv = blk_v[:, r * nbl:(r + 1) * nbl, :, heads]
     loc = ids[:, heads] - r * nbl
     mine = (loc >= 0) & (loc < nbl) & ok[:, heads]          # (B, KVl, topk)
     locc = loc.clamp(0, nbl - 1)
@@ -369,6 +407,25 @@ def _lsm_cold_stats(cfg, qg, blk_k, blk_v, ids, ok, scale: float):
     acc_g = RT.all_reduce_(acc_p * corr[..., None], "data")
     return (RT.all_gather(m_g, "model", 1), RT.all_gather(l_g, "model", 1),
             RT.all_gather(acc_g, "model", 1))
+
+
+def _own_blocks(t):
+    """This rank's shard of a DTensor block store (B, NB, mu, KV, hd):
+    its blocks over the data axis, its kv heads over the model axis."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = t.device_mesh
+    place = [Shard(1) if n == "data" else Shard(3) if n == "model"
+             else Replicate() for n in mesh.mesh_dim_names]
+    return t.redistribute(mesh, place).to_local()
+
+
+def _whole(t):
+    """A DTensor gathered whole on every rank (a plain tensor as it is)."""
+    if not RT.is_dtensor(t):
+        return t
+    from torch.distributed.tensor import Replicate
+    return t.redistribute(t.device_mesh,
+                          [Replicate()] * t.device_mesh.ndim).to_local()
 
 
 def _lsm_stats(cfg, qg, cache: dict, topk: int):

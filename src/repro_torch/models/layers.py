@@ -64,9 +64,8 @@ def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
     assert sum(sections) == hd // 2, (sections, hd)
     freqs = rope_freqs(hd, theta, x.device)
     # which position stream drives each frequency lane
-    sec_id = torch.repeat_interleave(
-        torch.arange(len(sections), device=x.device),
-        torch.tensor(sections, device=x.device))
+    sec_id = torch.tensor([i for i, n in enumerate(sections)
+                           for _ in range(n)], device=x.device)
     pos = positions3[sec_id]                               # (hd/2, B, S)
     ang = pos.movedim(0, -1).float() * freqs               # (B, S, hd/2)
     cos = torch.cos(ang)[..., None, :]

@@ -36,6 +36,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import shape_only
 from repro_torch.device import resolve_device
 from repro_torch.distributed import runtime as RT
 from repro_torch.models import attention as ATT
@@ -277,7 +278,12 @@ def _encode(cfg, model: LM, frames) -> torch.Tensor:
 
 def _ffn_residual(cfg, lp: Block, x):
     """-> (x + the block's FFN of x, its auxiliary loss: the router's
-    load-balancing loss for a moe block, None for a dense one)."""
+    load-balancing loss for a moe block, None for a dense one). On a mesh,
+    a batch that |DP| does not divide is replicated first: DTensor's
+    products would otherwise shard the flattened rows over DP and then
+    fail to unflatten them into the batch."""
+    if RT.is_dtensor(x) and x.shape[0] % RT.dp_size():
+        x = RT.constrain(x, None, None, None)
     h = apply_norm(cfg, lp.ln2, x)
     if cfg.family == "moe":
         y, aux = moe_ffn(cfg, lp.moe, h)
@@ -430,10 +436,30 @@ def forward_collect(cfg, model: LM, batch: dict):
     application); and "pos" (B,))."""
     b, s = torch.as_tensor(batch["tokens"]).shape
     t = batch["frames"].shape[1] if cfg.family == "encdec" else None
-    caches = init_decode_caches(cfg, b, s, "dense", model.device, enc_len=t)
+    if RT.is_dtensor(model.embed):
+        caches = _mesh_caches(cfg, b, s, t, model.embed.device_mesh)
+    else:
+        caches = init_decode_caches(cfg, b, s, "dense", model.device,
+                                    enc_len=t)
     hidden, _ = _stack_spmd(cfg, model, batch, caches)
     caches["pos"].fill_(s)
     return hidden, caches
+
+
+def _mesh_caches(cfg, b: int, s: int, t, mesh) -> dict:
+    """Zeroed dense caches as DTensors laid out by the sharding rules
+    (`cache_pspecs`), each rank making only its own shards."""
+    from torch.distributed.tensor import zeros as dzeros
+
+    from repro_torch.distributed import sharding as SH
+    meta = init_decode_caches(cfg, b, s, "dense", "meta", enc_len=t)
+
+    def make(tree, specs):
+        return {k: make(v, specs[k]) if isinstance(v, dict) else
+                dzeros(v.shape, dtype=v.dtype, device_mesh=mesh,
+                       placements=SH.placements(mesh, specs[k]))
+                for k, v in tree.items()}
+    return make(meta, SH.cache_pspecs(cfg, meta, mesh))
 
 
 def prefill_step(cfg, model: LM, batch: dict):
@@ -499,9 +525,15 @@ def decode_step(cfg, model: LM, token: torch.Tensor, caches: dict,
     are updated in place; the returned dict holds the new counters. Each
     attention call writes its slot of the stacked KV cache at a position
     read to the host once a step. An encdec model decodes its dense
-    layout whatever `kind` says, as the reference does."""
+    layout whatever `kind` says, as the reference does. On DTensor
+    parameters and caches (a mesh registered) it runs in `RT.spmd()`."""
     if kind not in ("dense", "lsm"):
         raise ValueError(f"cache kind {kind!r}: dense | lsm")
+    with RT.spmd():
+        return _decode_step(cfg, model, token, caches, kind)
+
+
+def _decode_step(cfg, model: LM, token, caches: dict, kind: str):
     pos = caches["pos"]
     x = _embed(cfg, model, torch.as_tensor(token, device=model.device))
     x = x[:, None, :]                                       # (B, 1, d)
@@ -511,8 +543,11 @@ def decode_step(cfg, model: LM, token: torch.Tensor, caches: dict,
         x = x + table[pos.clamp(max=table.shape[0] - 1).long()][:, None, :]
     stack = kv_stack(cfg, caches)
     if stack is not None:
-        where = (stack["hot_len"][:, 0].tolist() if kind == "lsm"
-                 else [int(pos[0])] * n_attention(cfg))
+        # in a shape-only run the slots read as 0, a slot every cache has
+        # (no shape of the step depends on them)
+        where = (shape_only.host_ints(stack["hot_len"][:, 0])
+                 if kind == "lsm"
+                 else shape_only.host_ints(pos[:1]) * n_attention(cfg))
     hot_len = []
 
     def attend(lp, x, j):

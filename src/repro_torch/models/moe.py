@@ -117,14 +117,17 @@ def _moe_mesh(cfg, p: MoE, x: torch.Tensor):
     `Shard(0)` over `model`), through `to_local()`. The router runs on
     every model rank. x and the weights may be DTensors or full tensors
     on every rank; the result is a DTensor (batch over DP) for a
-    DTensor x, else the full tensors."""
+    DTensor x, else the full tensors. A batch that |DP| does not divide
+    (a DTensor x only: decode at batch 1) is whole on every DP rank."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
 
     mesh = RT.mesh()
     names = mesh.mesh_dim_names
     dp, model = RT.dp_axes(), RT.model_axis()
     b, s, d = x.shape
-    bl = b // RT.dp_size()
+    split = b % RT.dp_size() == 0           # batch rows over DP
+    rows_dp = dp if split else ()
+    bl = b // RT.dp_size() if split else b
     c = moe_capacity(cfg, bl * s)
     e_local = cfg.n_experts // RT.model_size()
 
@@ -135,11 +138,12 @@ def _moe_mesh(cfg, p: MoE, x: torch.Tensor):
     # each rank's part: its rows of x (whose gradient sums over the
     # expert slices), the router (over its rows and slices), its expert
     # slice (over the rows)
-    x_l = RT.grad_sum(RT.constrain(dt(x), "dp", None, None).to_local(),
-                      model)                                   # (Bl, S, d)
+    x_l = RT.grad_sum(RT.constrain(dt(x), "dp" if split else None, None,
+                                   None).to_local(), model)    # (Bl, S, d)
     router = RT.grad_sum(RT.constrain(dt(p.router), None, None).to_local(),
-                         (*dp, model))
-    w = [RT.grad_sum(RT.constrain(dt(t), "model", None, None).to_local(), dp)
+                         (*rows_dp, model))
+    w = [RT.grad_sum(RT.constrain(dt(t), "model", None, None).to_local(),
+                     rows_dp)
          for t in (p.w_gate, p.w_up, p.w_down)]                # (El, ., .)
     e0 = RT.axis_rank(model) * e_local
     y, aux = _dispatch(cfg, router, *w, x_l.reshape(bl * s, d), c, e0)
@@ -147,8 +151,9 @@ def _moe_mesh(cfg, p: MoE, x: torch.Tensor):
     # aux is the same on every expert slice: a 1/|model| share of it from
     # each keeps its gradient a sum of parts too; then the mean over DP
     aux = RT.psum(aux / RT.model_size(), (model, *dp)) / RT.dp_size()
-    y = DTensor.from_local(y, mesh, [Shard(0) if n in dp else Replicate()
-                                     for n in names], run_check=False)
+    y = DTensor.from_local(y, mesh, [Shard(0) if n in rows_dp
+                                     else Replicate() for n in names],
+                           run_check=False)
     aux = DTensor.from_local(aux, mesh, [Replicate()] * mesh.ndim,
                              run_check=False)
     if RT.is_dtensor(x):
@@ -159,14 +164,15 @@ def _moe_mesh(cfg, p: MoE, x: torch.Tensor):
 def moe_ffn(cfg, p: MoE, x: torch.Tensor):
     """x (B, S, d) -> (y (B, S, d) in x's dtype, aux_loss f32 scalar).
 
-    With a mesh registered, B divisible by |DP| and the experts by
-    |model|: the mesh path (`_moe_mesh`). Otherwise the tokens split
-    into G = min(moe_dp_groups, B) groups, each routed on its own at the
+    With a mesh registered, B divisible by |DP| (or x a DTensor) and the
+    experts by |model|: the mesh path (`_moe_mesh`). Otherwise the tokens
+    split into G = min(moe_dp_groups, B) groups, each routed on its own at the
     capacity of T / G tokens; aux is the groups' mean. Capacity is per
     group or shard, so with no overflow the paths compute the same
     function."""
     b, s, d = x.shape
-    if (RT.mesh() is not None and b % RT.dp_size() == 0
+    if (RT.mesh() is not None and (b % RT.dp_size() == 0
+                                   or RT.is_dtensor(x))
             and cfg.n_experts % RT.model_size() == 0):
         return _moe_mesh(cfg, p, x)
     t = b * s

@@ -27,7 +27,15 @@ bounds of `tests/test_distributed.py`:
   < 2e-3 against the reference's and the port's single-device decode;
 - (e) elastic reshard (2, 4) -> host -> 2 x 2, bitwise;
 - (f) (d) with the stats merge's all-reduce(MAX) made local must miss
-  (d)'s bound.
+  (d)'s bound;
+- (g) prefill and three teacher-forced decode steps on (4, 2), with the
+  model, batch and caches as DTensors laid out by the sharding rules,
+  against the same on one process, < 2e-3 (as (d)): dense at batch 2
+  (the cache's positions over data), tiered at batch 2 (the kernel
+  branch: q's heads over model, the blocks over data) and at batch 1
+  (the stats branch on DTensor blocks);
+- (h) qwen3-moe smoke's `moe_ffn` on (2, 4) at batch 1 (a batch DP does
+  not divide) against one process, < 2e-3.
 """
 import dataclasses
 import os
@@ -578,3 +586,52 @@ def test_planted_stats_merge_fault_is_caught(world, ref_lsm):
     assert int(r["stats_calls"]) == W.lsm_cfg().n_layers
     err = float(np.abs(r["logits"] - ref_lsm).max())
     assert err >= 2e-3, err
+
+
+# the placements each case's caches must have on (4, 2): dense k/v
+# (L, B, S, KV, hd) positions over data, kv heads over model; tiered
+# blk (L, B, NB, mu, KV, hd) blocks over data, kv heads over model
+_POS_DATA, _BLK_DATA = "(Shard(dim=2), Shard(dim=3))", \
+    "(Shard(dim=2), Shard(dim=4))"
+_HEADS_Q = "(Replicate(), Shard(dim=1))"
+
+
+@pytest.mark.parametrize("case", list(W.SERVE_CASES))
+def test_serving_on_the_mesh_matches_single_device(world, case):
+    """(g) the prefill's logits and K/V (its caches made by the mesh's
+    own `_mesh_caches`), then each decode step's logits, mesh against one
+    process; the layouts and the branch each case is there to reach."""
+    r = _result(world, f"serve_{case}")
+    b, kind = W.SERVE_CASES[case]
+    assert str(r["prefill_place"]) == _POS_DATA
+    keys = ["prefill", "prefill_k",
+            *(f"step{i}" for i in range(W.SERVE_STEPS))]
+    for k in keys:
+        assert r[k].shape == r["single:" + k].shape, k
+        err = float(np.abs(r[k] - r["single:" + k]).max())
+        assert err < 2e-3, (k, err)
+    place = dict(zip(sorted(["k", "v", "pos"] if kind == "dense" else
+                            ["blk_k", "blk_v", "hot_k", "hot_len", "hot_v",
+                             "n_blocks", "pos", "summ"]),
+                     r["cache_place"]))
+    if kind == "dense":
+        assert place["k"] == place["v"] == _POS_DATA
+    else:
+        assert place["blk_k"] == place["blk_v"] == _BLK_DATA
+    # each step reaches the kernel entry points per rank with q's heads
+    # over model; batch 1 takes the stats branch in every layer and step,
+    # batch 2 the kernel branch
+    assert list(r["q_place"]) == [_HEADS_Q]
+    want_stats = W.lsm_cfg().n_layers * W.SERVE_STEPS \
+        if (kind, b) == ("lsm", 1) else 0
+    assert int(r["stats_calls"]) == want_stats
+    assert int(r["single:stats_calls"]) == 0
+
+
+def test_moe_batch_one_on_the_mesh_matches_single_device(world):
+    """(h) through the mesh branch, x whole on every DP rank."""
+    r = _result(world, "moe_b1")
+    assert int(r["mesh_calls"]) == 1
+    assert r["y"].shape == r["single_y"].shape
+    assert float(np.abs(r["y"] - r["single_y"]).max()) < 2e-3
+    assert abs(float(r["aux"]) - float(r["single_aux"])) < 2e-3

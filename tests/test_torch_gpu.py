@@ -1391,3 +1391,51 @@ def test_lsm_stats_branch_on_card_matches_single_device(nccl_mesh):
         RT.clear()
     assert branch.calls == cfg.n_layers
     assert float((got - want).abs().max()) < 2e-3
+
+
+def _decode_inputs(device, b=2, h=8, kv=2, dh=64, length=300):
+    g = torch.Generator().manual_seed(3)
+    q, k, v = (torch.randn(s, generator=g).to(device, torch.bfloat16)
+               for s in ((b, h, dh), (b, length, kv, dh),
+                         (b, length, kv, dh)))
+    lens = torch.tensor([length // 2, length], dtype=torch.int32,
+                        device=device)
+    return q, k, v, lens
+
+
+@pytest.mark.gpu
+def test_real_cuda_tensors_never_take_the_shape_only_path(cuda):
+    """Inside a cost counter, real CUDA inputs launch the kernel (one
+    launch each entry point) and record no shape-only kernel cost; the
+    output is the plain version's, within one bf16 ulp."""
+    from repro_torch.launch import cost
+    q, k, v, lens = _decode_inputs(cuda)
+    n0 = KLA.decode_attention.launches
+    with cost.CostCounter() as c:
+        got = KLA.decode_attention_op(q, k, v, lens, 0.125)
+        torch.cuda.synchronize()
+    assert KLA.decode_attention.launches == n0 + 1
+    assert c.kernels == {}
+    want = KLA.decode_attention_op(q.cpu(), k.cpu(), v.cpu(), lens.cpu(),
+                                   0.125)
+    assert torch.allclose(got.cpu().float(), want.float(), rtol=8e-3,
+                          atol=1e-3 * float(want.float().abs().max()))
+
+
+@pytest.mark.gpu
+def test_dtensor_inputs_launch_the_kernel_per_rank(nccl_mesh):
+    """DTensor inputs on the (1, 1) NCCL mesh: the entry point runs the
+    kernel on each rank's shards (one launch) and gives the plain
+    tensors' result, laid out as q."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    q, k, v, lens = _decode_inputs(torch.device("cuda"))
+    want = KLA.decode_attention_op(q, k, v, lens, 0.125)
+    place = [Shard(0), Replicate()]
+    dq, dk, dv, dl = (DTensor.from_local(t, nccl_mesh, place,
+                                         run_check=False)
+                      for t in (q, k, v, lens))
+    n0 = KLA.decode_attention.launches
+    got = KLA.decode_attention_op(dq, dk, dv, dl, 0.125)
+    assert KLA.decode_attention.launches == n0 + 1
+    assert isinstance(got, DTensor) and tuple(got.placements) == tuple(place)
+    assert torch.equal(got.to_local(), want)

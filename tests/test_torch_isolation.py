@@ -1,6 +1,6 @@
 """The port stands alone: importing every `repro_torch` module (the
 training path's `train` and `data`, `distributed` and `launch` among
-them) and the process-kill twins (`tools/*_torch.py`; the failover
+them; none sets XLA_FLAGS, as the reference's dry run does) and the process-kill twins (`tools/*_torch.py`; the failover
 demo twin runs at import, so its imports are read from its source)
 pulls in neither JAX nor the reference package (nor `ml_dtypes`: the snapshot
 codec and checkpoints carry bfloat16 without it), and the engine refuses
@@ -28,8 +28,12 @@ for name in mods + ["repro_torch.engine.wal", "repro_torch.checkpoint",
 assert {"repro_torch.train.train_step", "repro_torch.data.pipeline",
         "repro_torch.distributed.sharding", "repro_torch.distributed.runtime",
         "repro_torch.distributed.compress", "repro_torch.distributed.elastic",
-        "repro_torch.distributed.pipeline", "repro_torch.launch.mesh"} \
-    <= set(mods), mods
+        "repro_torch.distributed.pipeline", "repro_torch.launch.mesh",
+        "repro_torch.launch.cost", "repro_torch.launch.dryrun",
+        "repro_torch.launch.roofline", "repro_torch.launch.report",
+        "repro_torch.launch.diagnose"} <= set(mods), mods
+import os
+assert "XLA_FLAGS" not in os.environ, os.environ["XLA_FLAGS"]
 import ast, importlib.util
 for tool in ("recovery_smoke_torch", "replication_smoke_torch"):
     spec = importlib.util.spec_from_file_location(tool, f"tools/{tool}.py")

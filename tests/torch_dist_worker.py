@@ -29,10 +29,11 @@ from repro_torch.distributed.elastic import (make_elastic_mesh,  # noqa: E402
                                              reshard)
 from repro_torch.distributed.pipeline import (gpipe_forward,  # noqa: E402
                                               split_layers_into_stages)
+from repro_torch.kernels.lsm_attention import ops as KLA  # noqa: E402
 from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.models import moe as MOE  # noqa: E402
-from repro_torch.serving import lsm_from_dense  # noqa: E402
+from repro_torch.serving import grow_dense, lsm_from_dense  # noqa: E402
 from repro_torch.train import adamw_init, make_train_step  # noqa: E402
 
 LR, WARMUP = 1e-3, 2
@@ -230,6 +231,120 @@ def check_lsm_fault(rank):
     return {"logits": got, "stats_calls": np.array(calls)}
 
 
+SERVE_PROMPT, SERVE_STEPS, SERVE_MAX = 64, 3, 128
+
+
+def serve_tokens(cfg, b, seed=2):
+    """A prompt and the tokens teacher-forced into the decode steps."""
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, cfg.vocab,
+                        (b, SERVE_PROMPT + SERVE_STEPS)).astype(np.int32)
+
+
+def _full(t):
+    return t.full_tensor() if RT.is_dtensor(t) else t
+
+
+def _serve(b, kind, mesh):
+    """`lsm_cfg()`: prefill of a batch-`b` prompt, its dense caches grown
+    (dense) or tiered (lsm) to SERVE_MAX positions, then SERVE_STEPS
+    teacher-forced decode steps. On `mesh` the model, the batch and the
+    caches are DTensors laid out by the sharding rules (the prefill's
+    caches by its own `_mesh_caches`, gathered to lay the decode caches
+    out); with None, one process. -> the prefill's logits and K/V, each
+    step's logits, the stats branch's calls, the kernel inputs' q
+    placements and the decode caches' placements."""
+    from torch.distributed.tensor import DTensor
+    cfg = lsm_cfg()
+    toks = serve_tokens(cfg, b)
+    model = lm.init_params(cfg, 0, device="cpu")
+    batch = {"tokens": torch.from_numpy(toks[:, :SERVE_PROMPT])}
+    stats, q_place = [], set()
+    real_stats, real_per_rank = lm.ATT._lsm_stats, KLA._per_rank
+
+    def count_stats(*a):
+        stats.append(1)
+        return real_stats(*a)
+
+    def per_rank(entry, mesh_, tensors, *a, **k):
+        if isinstance(tensors[0], DTensor):
+            q_place.add(str(tensors[0].placements))
+        return real_per_rank(entry, mesh_, tensors, *a, **k)
+    lm.ATT._lsm_stats, KLA._per_rank = count_stats, per_rank
+    if mesh is not None:
+        SH.distribute_model(model, mesh, SH.param_pspecs(cfg, model, mesh))
+        batch = SH.distribute(batch, mesh,
+                              SH.batch_pspecs(cfg, batch, mesh))
+        RT.set_axes(("data",), "model", mesh)
+    try:
+        logits, dense = lm.prefill_step(cfg, model, batch)
+        out = {"prefill": _full(logits).numpy(),
+               "prefill_k": _full(dense["k"]).numpy()}
+        if mesh is not None:
+            out["prefill_place"] = np.array(str(dense["k"].placements))
+        dense = {k: _full(v) for k, v in dense.items()}
+        grow = lsm_from_dense if kind == "lsm" else grow_dense
+        caches = grow(cfg, dense, SERVE_MAX)
+        if mesh is not None:
+            caches = SH.distribute(caches, mesh,
+                                   SH.cache_pspecs(cfg, caches, mesh))
+            out["cache_place"] = np.array(
+                [str(v.placements) for k, v in sorted(caches.items())])
+        for i in range(SERVE_STEPS):
+            tok = torch.from_numpy(toks[:, SERVE_PROMPT + i])
+            if mesh is not None:
+                tok = SH.distribute(tok, mesh, SH.P())
+            logits, caches = lm.decode_step(cfg, model, tok, caches, kind)
+            out[f"step{i}"] = _full(logits).numpy()
+    finally:
+        RT.clear()
+        lm.ATT._lsm_stats, KLA._per_rank = real_stats, real_per_rank
+    out["stats_calls"] = np.array(len(stats))
+    out["q_place"] = np.array(sorted(q_place))
+    return out
+
+
+SERVE_CASES = {"dense_b2": (2, "dense"), "lsm_b2": (2, "lsm"),
+               "lsm_b1": (1, "lsm")}
+
+
+def check_serve(rank, case):
+    """prefill + decode on (4, 2) and on one process: dense with the
+    cache's positions over data (`_write_slot`); tiered at batch 2, the
+    kernel branch with q's heads over model and the blocks over data
+    (`_per_rank`, `select_blocks` per rank); tiered at batch 1, the
+    stats branch on DTensor blocks (`_lsm_cold_stats`)."""
+    b, kind = SERVE_CASES[case]
+    got = _serve(b, kind, make_host_mesh(4, 2, device="cpu"))
+    single = _serve(b, kind, None)
+    got.update({"single:" + k: v for k, v in single.items()})
+    return got
+
+
+def check_moe_b1(rank):
+    """`moe_ffn` of qwen3-moe smoke's first layer on (2, 4) at batch 1 (a
+    batch DP does not divide: x whole on every DP rank) and on one
+    process."""
+    from torch.distributed.tensor import DTensor, Replicate
+    cfg = get_config("qwen3-moe-30b-a3b").smoke()
+    mesh = make_host_mesh(2, 4, device="cpu")
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (1, 8, cfg.d_model)).astype(np.float32))
+    model = lm.init_params(cfg, 0, device="cpu")
+    y1, aux1 = MOE.moe_ffn(cfg, model.layers[0].moe, x)
+    SH.distribute_model(model, mesh, SH.param_pspecs(cfg, model, mesh))
+    RT.set_axes(("data",), "model", mesh)
+    try:
+        with _loads(cfg) as loads:
+            y, aux = MOE.moe_ffn(cfg, model.layers[0].moe, DTensor.from_local(
+                x, mesh, [Replicate()] * 2, run_check=False))
+    finally:
+        RT.clear()
+    return {"y": _full(y).numpy(), "aux": _full(aux).numpy(),
+            "single_y": y1.numpy(), "single_aux": aux1.numpy(),
+            "mesh_calls": np.array(loads.calls)}
+
+
 def check_elastic(rank):
     """(e) a tree on (2, 4), gathered to the host, laid out again on the
     2 x 2 mesh of ranks 0-3."""
@@ -253,7 +368,10 @@ def check_elastic(rank):
 CHECKS = [*((f"train_{a}", lambda rank, a=a: _train(a)) for a in TRAIN_ARCHS),
           ("moe", check_moe), ("pipe", check_pipe),
           ("lsm", check_lsm), ("elastic", check_elastic),
-          ("lsm_fault", check_lsm_fault)]
+          ("lsm_fault", check_lsm_fault),
+          *((f"serve_{c}", lambda rank, c=c: check_serve(rank, c))
+            for c in SERVE_CASES),
+          ("moe_b1", check_moe_b1)]
 
 
 def main():
