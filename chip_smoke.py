@@ -57,13 +57,15 @@ Phases, in order; any failure raises and exits non-zero:
   cascade  — the scaled geometry through deepest-level compactions with
              annihilation, checked against the dict oracle.
   adaptive — the adaptive tuner at the paper's widths (max_levels 4) with
-             the reference's shifting policy, through a copy of its
-             `make_shifting` stream (1M writes, 4M lookups, every other
-             lookup batch sparse, 32 scans), every answer against the
-             numpy oracle: WRITE reached in phase 1, READ at the end,
-             >= 2 retunes, >= 1 probe sample, level 0 folded empty and
-             left out of every later bloom_probe call (levels a launch
-             printed, held to the levels the state holds runs in);
+             the reference's shifting policy, through the port's
+             `make_shifting` stream (`repro_torch.bench.workloads`,
+             byte-identical to the reference's; 1M writes, 4M lookups,
+             every other lookup batch sparse, 32 scans), every answer
+             against the numpy oracle: WRITE reached in phase 1, READ at
+             the end, >= 2 retunes, >= 1 probe sample, level 0 folded
+             empty and left out of every later bloom_probe call (levels
+             a launch printed, held to the levels the state holds runs
+             in);
              lookups/s by allocation and search, each RETUNE's wall
              time and, profiled apart, the card's time of its rebuild,
              a rebuild of the final filters, and each flow's
@@ -156,8 +158,44 @@ Phases, in order; any failure raises and exits non-zero:
              engine's windows (not the op-by-op engine's), the durable
              restore with its reads, the sharded engine's traffic
              (after its warm-up), the replicated leader and followers
-             apart, and the replica kill's follower; a path that never
-             launches one of the engine's four kernels fails.
+             apart, the replica kill's follower, and each run of the
+             scenarios phase (below); a path that never launches one of
+             the engine's four kernels fails.
+  scenarios — the paper's workload families (`repro_torch.bench`) through
+             the engine at the paper's widths, one fresh engine a run,
+             each the main phase's baseline with only its reference
+             scenario's knob: sequential, zipfian, delete_heavy,
+             range_scan (max_range 8,192 and range_cand 16,384: no
+             window truncated), uniform, sweep_policy_leveling (at most
+             2 runs a level), sweep_merge_budget_0, sweep_eps_0p1 and
+             sweep_eps_1e-05, 900K inserts each (zipfian 2.6M:
+             overwrites fold in the staging buffer; leveling 750K at
+             max_levels 2: its level 2 would be ~115 GB; delete_heavy's
+             ~350K deletes after them) in calls of 4 * Rn, a drain, the
+             workload's lookups in batches of 4,096, and 64 windows
+             (range_scan's own, else each spanning 128 inserted keys,
+             zipfian's 4) as scans and aggregates in batches of 32; then
+             the serving stream through `Server` and `closed_loop`:
+             10,000 ops at 1 client on an empty store, every reply
+             against the oracle in stream order, and 50,000 ops at 16
+             clients on a store preloaded with 790,000 keys, whose
+             writes flush into a full level 0 and spill into disk level
+             1, every reply against the oracle at its point in the
+             dispatch order; then make_kv_workload's normal (negative
+             keys), zipf and cluster-lookup kinds, 200K inserts each, at
+             the KV service example's geometry. Every answer against
+             the oracle; each engine run and the 16-client point reach
+             disk level 1 and launch all four engine kernels, no round
+             kernel (the one-client point: those its state calls for).
+             A line a run: write ops/s, lookups/s, scans/s,
+             aggregates/s, levels and runs a level, flushes, spills and
+             compactions, launches (heap_merge by shape), peak memory,
+             the measured Bloom FP rate (the disk runs' filters on
+             absent keys) beside eps; bloom_probe timed on the eps
+             runs' own filters, heap_merge at leveling's 2-run spill
+             and on its deepest level's compaction input, its bound
+             counted over the filled lanes beside all lanes' (records
+             joining the kernels' `cases`).
   lsm_kernel — the attention kernel against its plain version at the LM
              path's shapes: the tiered cache read in place (bf16 and f32;
              every row it must not read is NaN), the dense cache of
@@ -284,10 +322,7 @@ Phases, in order; any failure raises and exits non-zero:
              1e-5 relative, every parameter's gradient (the step's first
              AdamW moment) within 1e-4 relative plus 1e-5 of the leaf's
              largest, every updated parameter within 2 * lr + 1e-6;
-             accum_steps 4 against 1 on the card at the same bounds; then
-             examples/quickstart_torch.py, long_context_serve_torch.py
-             and train_lm_torch.py as three concurrent subprocesses on
-             the card (their output in build/examples/).
+             accum_steps 4 against 1 on the card at the same bounds.
   mesh     — `distributed/` on a one-rank NCCL group and a (1, 1)
              (data, model) mesh on the card (NCCL places no two ranks on
              one card; the multi-rank checks run in the CPU tests), each
@@ -310,13 +345,19 @@ Phases, in order; any failure raises and exits non-zero:
              `compress` (int8 error-feedback roundtrip of a full-size
              leaf, bitwise the CPU's).
   mirrors  — tools/recovery_smoke_torch.py, tools/replication_smoke_torch.py
-             (and its --partition mode) and examples/failover_demo_torch.py
-             as concurrent subprocesses on the card, started before the
-             mesh phase (their output in build/mirrors/): exit 0 and
-             the reference twin's success line.
-  dryrun   — `repro_torch.launch.dryrun` in a child process (the mesh
-             phase opened NCCL here) on fake CUDA tensors over a fake
-             (1, 1) world, at two shapes measured above: the `train`
+             (and its --partition mode), examples/failover_demo_torch.py,
+             and the examples quickstart_torch.py,
+             long_context_serve_torch.py, train_lm_torch.py and
+             kv_store_service_torch.py, as eight concurrent subprocesses
+             on the card, started before the mesh phase (their output in
+             build/scripts/): exit 0 and the line each must print (a
+             twin's, its reference's success line).
+  dryrun   — `repro_torch.launch.dryrun` in a child process (started
+             with the train_agree phase, so that its CPU trace runs beside
+             value checks, not beside a phase that measures a rate; its
+             output in build/dryrun/) on fake
+             CUDA tensors over a fake (1, 1) world, at two shapes
+             measured above, its estimate read here: the `train`
              step and `lm_serve`'s tiered decode step. The estimate's
              argument bytes must equal the real weights, AdamW state and
              batch, its peak be within 25% of `train`'s
@@ -428,24 +469,44 @@ def wall_ms(fn, iters: int, warmup: int = 2) -> float:
 
 
 def device_us_by_name(prof):
-    """Device time (µs) of every kernel and copy a profile traced, by name."""
+    """Device time (µs) of every kernel and copy a profile traced, by name
+    (`trace_markers`' spin kernels left out)."""
     import collections
 
     from torch.autograd import DeviceType
     by_name = collections.Counter()
     for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA:
+        if ev.device_type == DeviceType.CUDA and MARKER_NAME not in ev.name:
             by_name[ev.name] += ev.time_range.elapsed_us()
     return by_name
+
+
+# the tracer drops the first one to three device events after it starts
+# (seen on an H100: a sort's first copy, fill and memset, the first split
+# and merge of a k-way merge): a trace opens with short spin kernels that
+# take the loss, and their events are left out
+TRACE_MARKERS = 8
+MARKER_CYCLES = 20_000           # ~10 µs each at the H100's clock
+MARKER_NAME = "spin_kernel"      # in the name of torch.cuda._sleep's kernel
+
+
+def trace_markers() -> None:
+    """Launch TRACE_MARKERS spin kernels and wait for them (inside a
+    trace, before the calls it times)."""
+    import torch
+    for _ in range(TRACE_MARKERS):
+        torch.cuda._sleep(MARKER_CYCLES)
+    torch.cuda.synchronize()
 
 
 def device_ms_by_name(fn, iters: int, warmup: int = 2) -> dict:
     """Mean device time (ms) a call of fn() over `iters` calls, by kernel
     or copy name, as torch.profiler traces them on the card. Every call
     launches the same kernels, so each name should be traced a multiple
-    of `iters` times. In a long process the tracer drops events (1 to 3
-    of 20 to 50 calls, seen on an H100), which would read the time low:
-    a trace that is not whole is taken again, and if none of 3 is, each
+    of `iters` times. The tracer drops the first events it sees (1 to 3,
+    seen on an H100), which would read the time low: each trace opens
+    with `trace_markers()`, whose events are left out. A trace that is
+    still not whole is taken again, and if none of 3 is, each
     name's time per traced event over the 3 is multiplied by its
     launches a call — the most events a try traced over `iters`, rounded
     up, since a trace only loses events — and the counts are logged. If
@@ -465,12 +526,14 @@ def device_ms_by_name(fn, iters: int, warmup: int = 2) -> dict:
     for _ in range(3):      # the tracer now and then drops events
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            trace_markers()
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
         by_name = device_us_by_name(prof)
         traced = collections.Counter(ev.name for ev in prof.events()
-                                     if ev.device_type == DeviceType.CUDA)
+                                     if ev.device_type == DeviceType.CUDA
+                                     and MARKER_NAME not in ev.name)
         if traced and all(n % iters == 0 for n in traced.values()):
             return {k: t / 1e3 / iters for k, t in by_name.items()}
         us.update(by_name)
@@ -990,14 +1053,82 @@ def level1_data(p, device, rng):
             torch.from_numpy(qs.astype(np.int32)).to(device))
 
 
+def merge_case(shape_name, n_runs: int, cap: int, fill: int, rng,
+               device, lanes=None, iters: int | None = None) -> dict:
+    """heap_merge over `n_runs` sorted runs of `cap` slots, `fill` keys
+    each (the second half of the runs partly filled), or over `lanes`
+    (flat keys, wts, seqs of such runs, on the card): the k-way kernel
+    (two launches a merge) beside the tournament of round launches it
+    replaces, each against the plain version on all four lanes; device
+    and wall times (over `iters` calls each, if given), the plain
+    version's, a stable sort's, and the bound of the records the merge
+    needs (the filled lanes, each read once and written once) beside
+    that of all lanes, KEY_EMPTY padding included."""
+    import torch
+    from repro_torch.core import runs as RU
+    from repro_torch.core.params import KEY_EMPTY
+    from repro_torch.kernels import heap_merge as KHM
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    if lanes is None:
+        cnt = np.full(n_runs, fill, np.int64)
+        cnt[n_runs // 2:] = fill - fill // 9     # partly filled runs too
+        kr = sorted_runs(rng, n_runs, cap, cnt)
+        real = kr != KEY_EMPTY
+        seqs = np.where(real, rng.permutation(kr.size).reshape(kr.shape), 0)
+        wts = np.where(real, rng.choice([-1, 1], kr.shape), 0)
+        lanes = [dev(a.reshape(-1).astype(np.int32)) for a in (kr, wts, seqs)]
+    n = n_runs * cap
+    ix = torch.arange(n, dtype=torch.int32, device=device)
+
+    def kway():
+        return KHM.kway_merge(*lanes, ix, n_runs)
+
+    def rounds():
+        return KHM.ops.tournament(*lanes, ix, cap, n_runs)
+
+    want = KHM.kway_merge_plain(*lanes, ix, n_runs)
+    got = kway()
+    old = rounds()
+    torch.cuda.synchronize()
+    comp = RU.composite(lanes[0], lanes[2])
+    filled = int((lanes[0] != KEY_EMPTY).sum())
+    rec = dict(
+        case=shape_name,
+        shape=f"{n_runs} runs x {cap} = {n} lanes",
+        filled_lanes=filled,
+        samples_in_shared=KHM.ops.kway_geometry(n_runs, cap)[-1],
+        max_abs_err=max_abs_err(got, want),
+        rounds_max_abs_err=max_abs_err(old, want),
+        ms=device_ms(kway, iters or 20), wall_ms=wall_ms(kway, iters or 20),
+        # one run takes no round: nothing to time
+        rounds_ms=device_ms(rounds, iters or 10) if n_runs > 1 else None,
+        rounds_launches=math.ceil(math.log2(n_runs)),
+        plain_ms=device_ms(lambda: KHM.kway_merge_plain(*lanes, ix, n_runs),
+                           iters or 5),
+        bound_ms=bound_ms("heap_merge", lanes=filled),
+        bound_all_lanes_ms=bound_ms("heap_merge", lanes=n),
+        library_ms=device_ms(lambda: torch.sort(comp, stable=True),
+                             iters or 10))
+    log(f"heap_merge {json.dumps(rec)}")
+    for key, what in (("max_abs_err", "k-way kernel"),
+                      ("rounds_max_abs_err", "rounds")):
+        if rec[key]:
+            raise AssertionError(f"heap_merge {what} ({shape_name}) "
+                                 "differs from the plain k-way order")
+    del lanes, ix, want, got, old, comp
+    torch.cuda.empty_cache()
+    return rec
+
+
 def kernel_phase(p, device, rng, parent_bloom=None):
     """Each kernel against its plain version at main-path shapes;
     `parent_bloom` (see `parent_bloom_levels`) is timed in turns with
     bloom_probe."""
     import torch
-    from repro_torch.core import runs as RU
     from repro_torch.core.params import KEY_EMPTY
-    from repro_torch.kernels import heap_merge as KHM
 
     def dev(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
@@ -1057,62 +1188,20 @@ def kernel_phase(p, device, rng, parent_bloom=None):
     # level_cap(1), whose samples miss shared memory); the k-way kernel
     # (two launches a merge) beside the tournament of round launches it
     # replaces, each against the plain version on all four lanes
-    cases = []
-    for shape_name, n_runs, cap, fill in (
-            ("spill", p.D, p.level_cap(0), p.runs_merged * p.Rn),
-            ("flush", p.runs_merged_eff, p.Rn, p.Rn),
-            ("deep spill", p.D, p.level_cap(1),
-             p.D * p.runs_merged * p.Rn),
-            # the read allocation: a flush of one memory run, and its
-            # eager level-0 folds of 1 and 2 runs (20 is the spill above)
-            ("read flush", 1, p.Rn, p.Rn),
-            ("read fold, 1 run", 1, p.level_cap(0), p.runs_merged * p.Rn),
-            ("read fold, 2 runs", 2, p.level_cap(0),
-             p.runs_merged * p.Rn)):
-        cnt = np.full(n_runs, fill, np.int64)
-        cnt[n_runs // 2:] = fill - fill // 9     # partly filled runs too
-        kr = sorted_runs(rng, n_runs, cap, cnt)
-        real = kr != KEY_EMPTY
-        seqs = np.where(real, rng.permutation(kr.size).reshape(kr.shape), 0)
-        wts = np.where(real, rng.choice([-1, 1], kr.shape), 0)
-        lanes = [dev(a.reshape(-1).astype(np.int32)) for a in (kr, wts, seqs)]
-        ix = torch.arange(kr.size, dtype=torch.int32, device=device)
-        n = kr.size
-
-        def kway(lanes=lanes, ix=ix, n_runs=n_runs):
-            return KHM.kway_merge(*lanes, ix, n_runs)
-
-        def rounds(lanes=lanes, ix=ix, n_runs=n_runs, cap=cap):
-            return KHM.ops.tournament(*lanes, ix, cap, n_runs)
-
-        want = KHM.kway_merge_plain(*lanes, ix, n_runs)
-        got = kway()
-        old = rounds()
-        torch.cuda.synchronize()
-        comp = RU.composite(lanes[0], lanes[2])
-        cases.append(dict(
-            case=shape_name,
-            shape=f"{n_runs} runs x {cap} = {n} lanes",
-            samples_in_shared=KHM.ops.kway_geometry(n_runs, cap)[-1],
-            max_abs_err=max_abs_err(got, want),
-            rounds_max_abs_err=max_abs_err(old, want),
-            ms=device_ms(kway, 20), wall_ms=wall_ms(kway, 20),
-            # one run takes no round: nothing to time
-            rounds_ms=device_ms(rounds, 10) if n_runs > 1 else None,
-            rounds_launches=math.ceil(math.log2(n_runs)),
-            plain_ms=device_ms(lambda lanes=lanes, ix=ix, n_runs=n_runs:
-                               KHM.kway_merge_plain(*lanes, ix, n_runs), 5),
-            bound_ms=bound_ms("heap_merge", lanes=n),
-            library_ms=device_ms(lambda comp=comp: torch.sort(
-                comp, stable=True), 10)))
-        log(f"heap_merge {json.dumps(cases[-1])}")
-        for key, what in (("max_abs_err", "k-way kernel"),
-                          ("rounds_max_abs_err", "rounds")):
-            if cases[-1][key]:
-                raise AssertionError(f"heap_merge {what} ({shape_name}) "
-                                     "differs from the plain k-way order")
-        del lanes, ix, want, got, old, comp
-        torch.cuda.empty_cache()
+    cases = [merge_case(shape_name, n_runs, cap, fill, rng, device)
+             for shape_name, n_runs, cap, fill in (
+                 ("spill", p.D, p.level_cap(0), p.runs_merged * p.Rn),
+                 ("flush", p.runs_merged_eff, p.Rn, p.Rn),
+                 ("deep spill", p.D, p.level_cap(1),
+                  p.D * p.runs_merged * p.Rn),
+                 # the read allocation: a flush of one memory run, and its
+                 # eager level-0 folds of 1 and 2 runs (20 is the spill
+                 # above)
+                 ("read flush", 1, p.Rn, p.Rn),
+                 ("read fold, 1 run", 1, p.level_cap(0),
+                  p.runs_merged * p.Rn),
+                 ("read fold, 2 runs", 2, p.level_cap(0),
+                  p.runs_merged * p.Rn))]
     spill = cases[0]
     out.append(dict(
         spill, name="heap_merge", source="src/repro_torch/csrc/heap_merge.cu",
@@ -1504,52 +1593,6 @@ def adaptive_params():
                                             eps_floor=1e-4))
 
 
-def shifting_traffic(n: int, seed: int, *, write_frac: float = 0.85,
-                     key_space: int = 2 ** 24, theta: float = 1.1,
-                     lookup_frac: float = 4.0, miss_frac: float = 0.25,
-                     n_ranges: int = 32, span: int = 65_536):
-    """A copy of the reference's `make_shifting` stream
-    (`repro/bench/workloads.py`): phase 1 uniform even inserts with a
-    trickle of lookups, phase 2 Zipf(theta) lookups over the phase-1 keys
-    with a trickle of fresh inserts; a quarter of the lookups absent
-    (key | 1); scan windows of `span` keys centred on phase-1 keys."""
-    import zlib
-    rng = np.random.default_rng((zlib.crc32(b"bench-shifting"), seed))
-
-    def even(count):
-        return (rng.integers(0, key_space // 2, count, dtype=np.int64)
-                * 2).astype(np.int32)
-
-    n1 = max(1, int(n * write_frac))
-    keys1, keys2 = even(n1), even(max(1, n - n1))
-    vals = rng.integers(-2 ** 30, 2 ** 30, n1 + len(keys2), dtype=np.int32)
-    n_lookups = max(2, int(n * lookup_frac))
-    nl1 = max(1, n_lookups // 20)
-
-    def mixed(pool, count):
-        n_miss = int(count * miss_frac)
-        hits = rng.choice(pool, size=count - n_miss, replace=True)
-        miss = rng.choice(keys1, size=n_miss, replace=True) | np.int32(1)
-        out = np.concatenate([hits, miss]).astype(np.int32)
-        rng.shuffle(out)
-        return out
-
-    l1 = mixed(keys1, nl1)
-    distinct = np.unique(keys1)
-    w = 1.0 / np.power(np.arange(1, len(distinct) + 1, dtype=np.float64),
-                       theta)
-    ranks = np.minimum(np.searchsorted(np.cumsum(w / w.sum()),
-                                       rng.random(n_lookups - nl1),
-                                       side="right"), len(distinct) - 1)
-    l2 = mixed(distinct[rng.permutation(len(distinct))[ranks]],
-               n_lookups - nl1)
-    rng.choice(keys1, size=min(4096, 4 * n1), replace=True)   # `absent`
-    centres = rng.choice(keys1, size=n_ranges, replace=True).astype(np.int64)
-    lo = np.maximum(0, centres - span // 2)
-    wins = np.stack([lo, lo + span], axis=1).astype(np.int32)
-    return (keys1, vals[:n1]), (keys2, vals[n1:]), l1, l2, wins
-
-
 class probe_tally:
     """Within the block, while `active`, record the disk levels of every
     `bloom_probe_levels` call the engine makes (matched by their filter
@@ -1595,8 +1638,13 @@ def adaptive_phase(device, seed: int, n: int, tally, p=None):
     from repro_torch.engine.read_path import host_occupancy
     from repro_torch.engine.tuner import retune_filters
 
+    from repro_torch.bench.workloads import make_shifting
+
     p = p or adaptive_params()
-    (k1, v1), (k2, v2), l1, l2, wins = shifting_traffic(n, seed)
+    w = make_shifting(n, seed, n_ranges=32, span=65_536)
+    n1, nl1 = w.meta["n_phase1"], w.meta["n_lookups_phase1"]
+    k1, v1, k2, v2 = w.keys[:n1], w.vals[:n1], w.keys[n1:], w.vals[n1:]
+    l1, l2, wins = w.lookups[:nl1], w.lookups[nl1:], w.ranges
     eng, oracle = SLSM(p, device=device), DenseOracle(KEY_BITS)
     alloc_time = collections.defaultdict(float)
     alloc_lookups = collections.Counter()
@@ -3544,6 +3592,459 @@ def replica_kill_phase(device, seed: int, tally):
 
 
 # --------------------------------------------------------------------------
+# scenarios phase: the paper's workload families and named scenarios
+# --------------------------------------------------------------------------
+
+# inserts of an engine run (main: 8M writes): level 0 holds D = 20 runs of
+# a flush each (50 seals of 800 keys), so the 20th flush (1,000 seals,
+# 800,000 distinct keys) fills it and spills it into disk level 1; 900K
+# make 22 flushes (1,124 seals) and keep the whole smoke inside its limit
+SCENARIO_N = 900_000
+SERVING_N = 50_000              # ops of the 16-client stream (~8,300 requests)
+SERVING_ONE_N = 10_000          # ops of the one-client stream (~1,650)
+# distinct keys written into the 16-client point's store before its stream:
+# 19 flushes leave level 0 one run short of full and 30,000 keys in the
+# memory buffer, so the stream's ~31,000 write keys make the 20th flush,
+# which spills level 0 into disk level 1 (the stream alone stays in the
+# 40,000-key buffer)
+SERVING_PRELOAD = 790_000
+KV_N = 200_000                  # inserts of each make_kv_workload kind
+KV_KINDS = ("normal", "zipf", "cluster-lookup")
+SCENARIO_WINDOWS = 64           # derived scan windows of a family without
+WINDOW_KEYS = 128               # its own, each spanning this many keys
+# but zipfian's: its hot keys sit in every run (up to 1 + R + D = 71 copies
+# at these widths), so 128 keys overflow the 512-candidate budget and
+# every such scan comes back truncated; 4 keys stay under it
+WINDOW_KEYS_OF = {"zipfian": 4}
+# (the reference's scenario, an override beyond its own params, inserts):
+# each run is the main phase's baseline with the scenario's knob applied.
+# The range-scan run widens the candidate budget so no window is
+# truncated. zipfian's staging buffer folds each overwrite in place, so a
+# memory run fills with 800 distinct keys only after ~2,350 inserts: 2M
+# inserts make 17 flushes, short of level 0's 20, and 2.6M make 22.
+# Leveling merges a level down once it holds 2 runs, so level 2 (the
+# deepest at max_levels 3, ~115 GB at D = 20) would be needed after 4
+# flushes: its run keeps max_levels 2, where level 1, the deepest,
+# compacts its 2 runs into one of level_cap(1) = 808,960 slots, and
+# 750K distinct keys fit that run.
+SCENARIO_RUNS = (("sequential", {}, SCENARIO_N),
+                 ("zipfian", {}, 2_600_000),
+                 ("delete_heavy", {}, SCENARIO_N),
+                 ("range_scan", {"range_cand": 16_384}, SCENARIO_N),
+                 ("uniform", {}, SCENARIO_N),
+                 ("sweep_policy_leveling", {"max_levels": 2}, 750_000),
+                 ("sweep_merge_budget_0", {}, SCENARIO_N),
+                 ("sweep_eps_0p1", {}, SCENARIO_N),
+                 ("sweep_eps_1e-05", {}, SCENARIO_N))
+
+
+class FinalOracle:
+    """The state a workload leaves — its inserts (the last of a key wins),
+    then its deletes — as sorted numpy arrays, for reads that all follow
+    the writes: a lookup is one binary search, a window two."""
+
+    def __init__(self, keys, vals, deletes):
+        uniq, first = np.unique(keys[::-1], return_index=True)
+        live = ~np.isin(uniq, deletes)
+        self.keys, self.vals = uniq[live], vals[::-1][first][live]
+
+    def lookup(self, qs):
+        i = np.minimum(np.searchsorted(self.keys, qs), self.keys.size - 1)
+        found = self.keys[i] == qs
+        return np.where(found, self.vals[i], 0).astype(np.int32), found
+
+    def check_lookups(self, qs, vals, found, what: str):
+        want_v, want_f = self.lookup(qs)
+        if not np.array_equal(found, want_f):
+            raise AssertionError(f"{what}: found-flags differ on "
+                                 f"{int((found != want_f).sum())} keys")
+        if not np.array_equal(vals[found], want_v[found]):
+            raise AssertionError(f"{what}: values differ from the oracle")
+
+    def window(self, lo, hi):
+        a, b = np.searchsorted(self.keys, [lo, hi])
+        return self.keys[a:b], self.vals[a:b]
+
+
+def spanning_windows(keys, rng, n: int = SCENARIO_WINDOWS,
+                     per: int = WINDOW_KEYS):
+    """`n` [lo, hi) windows from `rng`, each spanning `per` distinct
+    `keys` (the scan windows of a family that draws none)."""
+    distinct = np.unique(keys)
+    i = rng.integers(0, distinct.size - per, n)
+    return np.stack([distinct[i], distinct[i + per].astype(np.int64) + 1],
+                    axis=1).astype(np.int32)
+
+
+def measured_fp_rate(eng, absent, max_runs: int = 64):
+    """The mean Bloom admit rate of the disk runs' filters on keys absent
+    from the store (the reference runner's `measured_fp_rate`: 2,048
+    keys, at most 64 runs), probed by the plain PyTorch probe, so no
+    counted kernel runs. -> (rate, runs probed, keys probed)."""
+    import torch
+    from repro_torch.core.bloom import bloom_probe
+    p = eng.p_active
+    qs = torch.from_numpy(np.ascontiguousarray(absent[:2048], np.int32)).to(
+        eng.device)
+    admit, runs = 0.0, 0
+    for lvl, lv in enumerate(eng.state.levels):
+        bits, _, k = p.bloom_geometry(p.level_cap(lvl), p.level_eps(lvl))
+        for d in range(min(int(lv.n_runs), max_runs - runs)):
+            admit += float(bloom_probe(lv.blooms[d], qs, k, bits).float()
+                           .mean())
+            runs += 1
+    return (admit / runs if runs else 0.0), runs, int(qs.numel())
+
+
+def absent_keys(oracle, rng, n: int = 4096):
+    """Keys the oracle does not hold, drawn from `rng` over int32."""
+    qs = rng.integers(-2 ** 31 + 2, 2 ** 31 - 2, 2 * n, dtype=np.int32)
+    return qs[~oracle.lookup(qs)[1]][:n]
+
+
+def scenario_run(eng, keys, vals, deletes, lookups, windows, oracle, total,
+                 chunk: int) -> dict:
+    """The reference runner's order (`run_scenario`): inserts, then
+    deletes, in calls of `chunk` keys, a drain of the merge backlog,
+    lookups in batches of LOOKUP_BATCH, then each window as a scan and
+    as an aggregate in batches of SCAN_BATCH; every answer against
+    `oracle`. Launches counted apart (heap_merge's by shape too) and added
+    to `total`."""
+    import torch
+    from repro_torch.kernels import heap_merge as KHM
+    clocks = {k: Clock() for k in ("write", "drain", "lookup", "scan",
+                                   "aggregate")}
+    merges, n_trunc, n_agg_trunc, most = {}, 0, 0, 0
+    tally = total.fresh()
+    torch.cuda.reset_peak_memory_stats()
+    with tally, merge_tally(merges, KHM.kway_merge):
+        for off in range(0, keys.size, chunk):
+            with clocks["write"]:
+                eng.insert(keys[off:off + chunk], vals[off:off + chunk])
+        for off in range(0, deletes.size, chunk):
+            with clocks["write"]:
+                eng.delete(deletes[off:off + chunk])
+        with clocks["drain"]:
+            eng.drain()
+        for i in range(0, lookups.size, LOOKUP_BATCH):
+            qs = lookups[i:i + LOOKUP_BATCH]
+            with clocks["lookup"]:
+                v, f = eng.lookup_many(qs)
+            oracle.check_lookups(qs, v, f, "scenario lookups")
+        for i in range(0, len(windows), SCAN_BATCH):
+            w = windows[i:i + SCAN_BATCH]
+            with clocks["scan"]:
+                k, v, c, tr = eng.range_many(w)
+            check_scans(oracle, w, k, v, c, tr)
+            n_trunc += int(tr.sum())
+            most = max(most, int(c.max()))
+        for i in range(0, len(windows), SCAN_BATCH):
+            w = windows[i:i + SCAN_BATCH]
+            with clocks["aggregate"]:
+                c, s, tr = eng.aggregate_many(w)
+            for j, (a, b) in enumerate(w):
+                if tr[j]:
+                    n_agg_trunc += 1
+                    continue
+                ek, ev = oracle.window(int(a), int(b))
+                if int(c[j]) != len(ek) or int(s[j]) != wrap_sum(ev):
+                    raise AssertionError(f"aggregate {a}:{b} differs")
+    total.add(tally)
+    t = {k: c.total for k, c in clocks.items()}
+    return dict(
+        inserts=int(keys.size), deletes=int(deletes.size),
+        write_ops_per_s=(keys.size + deletes.size) / t["write"],
+        drain_s=t["drain"], lookups=int(lookups.size),
+        lookups_per_s=lookups.size / t["lookup"], scans=len(windows),
+        scans_per_s=len(windows) / t["scan"],
+        aggregates_per_s=len(windows) / t["aggregate"],
+        scans_truncated=n_trunc, aggregates_truncated=n_agg_trunc,
+        keys_returned_max=most, n_levels=eng.n_levels,
+        level_runs=[int(lv.n_runs) for lv in eng.state.levels],
+        stats={k: int(eng.stats[k]) for k in
+               ("seals", "flushes", "spills", "compactions", "backlog_peak",
+                "rows_annihilated")},
+        launches=dict(tally.counts), rounds=dict(tally.rounds),
+        heap_merge_by_shape=merges,
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+        live_keys=int(oracle.keys.size))
+
+
+def free_engine(eng) -> None:
+    """Drop an engine's device memory before the next run starts: the
+    engine's scheduler and tuner refer back to it, so only a collection
+    frees it."""
+    import gc
+
+    import torch
+    eng.state = None
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def check_launched(what: str, rec: dict, need) -> None:
+    """Every kernel of `need` launched, no round kernel."""
+    missing = [k for k in need if rec["launches"][k] == 0]
+    if missing or any(rec["rounds"].values()):
+        raise AssertionError(f"{what}: never launched {missing}, rounds "
+                             f"{rec['rounds']}")
+
+
+ENGINE_KERNELS = ("bloom_probe", "fence_lookup", "heap_merge", "range_merge")
+
+
+class DispatchFront:
+    """`closed_loop`'s server: submits to `srv` and, after each pump,
+    holds every reply of the window against `oracle` in submission order,
+    which is the server's dispatch order: writes into the oracle, reads
+    against it."""
+
+    def __init__(self, srv, oracle):
+        self.srv, self.oracle, self.new = srv, oracle, []
+
+    @property
+    def counters(self):
+        return self.srv.counters
+
+    def submit(self, client, kind, keys, vals=None):
+        t = self.srv.submit(client, kind, keys, vals)
+        self.new.append(t)
+        return t
+
+    def pump(self, force: bool = False) -> int:
+        n = self.srv.pump(force=force)
+        for t in self.new:
+            if not t.done:
+                raise AssertionError("a forced pump left a request unserved")
+            if t.kind == "insert":
+                self.oracle.insert(t.keys, t.vals)
+            elif t.kind == "delete":
+                self.oracle.delete(t.keys)
+            elif t.kind == "lookup":
+                self.oracle.check_lookups(t.keys, *t.result, "serving reply")
+            else:
+                check_scans(self.oracle, np.stack([t.keys, t.vals], 1),
+                            *t.result)
+        self.new = []
+        return n
+
+
+def serving_run(device, seed: int, total) -> list:
+    """`make_serving` (its defaults) through `Server` and `closed_loop`, a
+    fresh engine at the main phase's baseline a point: SERVING_ONE_N ops
+    at one client on an empty store, then SERVING_N ops at 16 clients on
+    a store that already holds SERVING_PRELOAD distinct keys of the
+    stream's key space (written before the stream, uncounted), whose
+    writes spill into disk level 1. Every reply against the oracle at its
+    point in the dispatch order (stream order at one client). Launches
+    counted a point, and added to `total`."""
+    import torch
+    from repro_torch.bench.workloads import make_serving
+    from repro_torch.configs.slsm_paper import paper_params
+    from repro_torch.engine import SLSM
+    from repro_torch.serve import Server, closed_loop
+
+    out = []
+    for clients, n_ops, preload in ((1, SERVING_ONE_N, 0),
+                                    (16, SERVING_N, SERVING_PRELOAD)):
+        w = make_serving(n_ops, seed)
+        bits = int(np.log2(w.meta["key_space"]))
+        eng = SLSM(paper_params(merge_budget=1, range_cand=512),
+                   device=device)
+        oracle = DenseOracle(bits)
+        if preload:
+            rng = np.random.default_rng(seed + 43)
+            keys = (rng.choice(2 ** (bits - 1), preload, replace=False)
+                    * 2).astype(np.int32)
+            vals = rng.integers(1, 2 ** 30, preload, dtype=np.int32)
+            for off in range(0, preload, 100_000):
+                eng.insert(keys[off:off + 100_000], vals[off:off + 100_000])
+            oracle.insert(keys, vals)
+        srv = Server(eng)
+        srv.warm()
+        front, tally = DispatchFront(srv, oracle), total.fresh()
+        before = {k: int(eng.stats[k]) for k in ("seals", "flushes",
+                                                 "spills")}
+        torch.cuda.reset_peak_memory_stats()
+        with tally:
+            loop = closed_loop(front, w.requests, clients)
+            srv.drain()
+        total.add(tally)
+        rec = dict(clients=clients, requests=len(w.requests), ops=w.n,
+                   preloaded_keys=preload,
+                   **{k: loop[k] for k in ("ops_per_s", "requests_per_s",
+                                           "p50_us", "p99_us", "windows",
+                                           "dispatches")},
+                   n_levels=eng.n_levels,
+                   level_runs=[int(lv.n_runs) for lv in eng.state.levels],
+                   stats={k: int(eng.stats[k]) - before[k] for k in before},
+                   launches=dict(tally.counts), rounds=dict(tally.rounds),
+                   max_memory_allocated=torch.cuda.max_memory_allocated(),
+                   live_keys=int(front.oracle.present.sum()))
+        # the kernels this state's structures call for: range_merge for
+        # the scans; a flushed memory buffer adds heap_merge, a disk run
+        # bloom_probe and fence_lookup; the preloaded point must flush,
+        # spill into disk level 1 and launch all four
+        need = ["range_merge"]
+        if rec["stats"]["flushes"]:
+            need.append("heap_merge")
+        if eng.n_levels:
+            need += ["bloom_probe", "fence_lookup"]
+        if preload and (rec["stats"]["spills"] == 0
+                        or set(need) != set(ENGINE_KERNELS)):
+            raise AssertionError(f"serving at {clients} clients: the "
+                                 f"stream never spilled into disk level 1 "
+                                 f"({rec['stats']}, {rec['level_runs']})")
+        check_launched(f"serving at {clients} clients", rec, need)
+        out.append(rec)
+        del srv
+        free_engine(eng)
+    return out
+
+
+LEVELING_ITERS = 4      # calls a time of the 323,584,000-lane compaction
+
+
+def scenario_kernel_cases(name: str, eng, rec: dict, lookups, rng) -> list:
+    """The kernel shapes a scenario run adds to the table, timed on the
+    card as the kernels phase times its own: bloom_probe over the run's
+    own filters (its eps's k) and a lookup batch of its keys, for the
+    eps sweeps; heap_merge at leveling's two new shapes: the 2-run spill
+    of level 0 (synthetic sorted runs) and the deepest level's
+    compaction over all D slots (the run's own final level, in place).
+    -> (kernel name, case record) pairs."""
+    import torch
+    out = []
+    if name.startswith("sweep_eps"):
+        p = eng.p_active
+        stacks = []
+        for level, lv in enumerate(eng.state.levels):
+            bits, _, k = p.bloom_geometry(p.level_cap(level),
+                                          p.level_eps(level))
+            stacks.append((lv.blooms, k, bits))
+        qs = torch.from_numpy(np.ascontiguousarray(
+            lookups[:LOOKUP_BATCH], np.int32)).to(eng.device)
+        out.append(("bloom_probe", bloom_case(
+            f"scenarios: {name}, its filters", stacks, qs, None)))
+    if name == "sweep_policy_leveling":
+        # the spill of level 0's two runs, and the deepest level's
+        # compaction over all D slots, read in place from the final state
+        # (its runs as the run left them)
+        p = eng.p
+        out.append(("heap_merge", merge_case(
+            f"scenarios: leveling spill, 2 x {p.level_cap(0)}", 2,
+            p.level_cap(0), p.runs_merged * p.Rn, rng, eng.device)))
+        lv = eng.state.levels[-1]
+        out.append(("heap_merge", merge_case(
+            f"scenarios: leveling compaction, {int(lv.n_runs)} of "
+            f"{p.D} runs filled", p.D, lv.keys.shape[1], 0, rng,
+            eng.device, [a.reshape(-1) for a in (lv.keys, lv.wts,
+                                                 lv.seqs)],
+            iters=LEVELING_ITERS)))
+    return out
+
+
+def scenarios_phase(device, seed: int, total, card: str) -> dict:
+    """The paper's workload families (`repro_torch.bench.workloads`)
+    through the engine at the paper's widths, one fresh engine a run (see
+    the module docstring): each run of SCENARIO_RUNS is the main phase's
+    baseline with its scenario's knob, then the serving stream, then
+    three `make_kv_workload` kinds at the KV service example's geometry.
+    Every answer exact; every engine kernel launched; no round kernel.
+    Each run's launches are counted apart and added to `total`. Logs a
+    line a run; -> the phase's records and its kernel cases
+    (`scenario_kernel_cases`)."""
+    import torch
+    from repro_torch.bench.scenarios import SCENARIOS
+    from repro_torch.bench.workloads import make_kv_workload, make_workload
+    from repro_torch.configs.slsm_paper import paper_params
+    from repro_torch.engine import SLSM, LevelingPolicy, TieringPolicy
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed + 41)
+    runs, cases = [], []
+    for i, (name, extra, n_inserts) in enumerate(SCENARIO_RUNS, 1):
+        sc = SCENARIOS[name]
+        t0 = time.perf_counter()
+        p = paper_params(**{"merge_budget": 1, "range_cand": 512,
+                            **sc.params, **extra})
+        policy = {"tiering": TieringPolicy,
+                  "leveling": LevelingPolicy}[sc.policy]()
+        w = make_workload(sc.workload, n_inserts, seed, **sc.wargs)
+        windows = (w.ranges if len(w.ranges) else spanning_windows(
+            w.keys, rng, per=WINDOW_KEYS_OF.get(sc.workload, WINDOW_KEYS)))
+        oracle = FinalOracle(w.keys, w.vals, w.deletes)
+        eng = SLSM(p, policy=policy, device=device)
+        eng.warm()
+        setup_s = time.perf_counter() - t0
+        rec = dict(run=i, scenario=name, workload=w.name, setup_s=setup_s,
+                   params=dict(R=p.R, Rn=p.Rn, D=p.D, mu=p.mu, eps=p.eps,
+                               max_levels=p.max_levels,
+                               max_range=p.max_range,
+                               range_cand=p.range_cand,
+                               merge_budget=p.merge_budget,
+                               policy=sc.policy),
+                   **scenario_run(eng, w.keys, w.vals, w.deletes, w.lookups,
+                                  windows, oracle, total, 4 * p.Rn))
+        fp, n_runs, n_keys = measured_fp_rate(eng, w.absent)
+        rec.update(fp_rate_measured=fp, fp_runs_probed=n_runs,
+                   fp_keys_probed=n_keys, eps_configured=p.eps)
+        cases.extend(scenario_kernel_cases(name, eng, rec, w.lookups, rng))
+        if sc.workload == "delete-heavy":
+            dead = np.isin(w.lookups, w.deletes)
+            rec["lookups_on_deleted_keys"] = int(dead.sum())
+            if not dead.any():
+                raise AssertionError("delete_heavy: no lookup of a "
+                                     "deleted key")
+        free_engine(eng)
+        rec["run_s"] = time.perf_counter() - t0
+        log(f"scenarios run {i} {name} [{card}]: " + json.dumps(rec))
+        check_launched(f"scenario {name}", rec, ENGINE_KERNELS)
+        if rec["n_levels"] < 2 or rec["level_runs"][1] + rec["stats"][
+                "spills"] == 0:
+            raise AssertionError(f"scenario {name}: disk level 1 never "
+                                 f"reached ({rec['level_runs']})")
+        if sc.policy == "leveling" and max(rec["level_runs"]) > 2:
+            raise AssertionError(f"scenario {name}: more than 2 runs a "
+                                 f"level ({rec['level_runs']})")
+        if sc.workload == "range-scan" and (rec["scans_truncated"]
+                                            or rec["aggregates_truncated"]):
+            raise AssertionError(f"scenario {name}: truncated windows")
+        runs.append(rec)
+
+    t0 = time.perf_counter()
+    serving = serving_run(device, seed, total)
+    for rec in serving:
+        log(f"scenarios run {len(runs) + 1} serving [{card}]: "
+            + json.dumps(rec))
+    runs.append(dict(run=len(runs) + 1, scenario="serving", points=serving,
+                     run_s=time.perf_counter() - t0))
+
+    p = paper_params(R=8, Rn=512, D=4, mu=64, max_levels=4, max_range=4096)
+    for kind in KV_KINDS:
+        t0 = time.perf_counter()
+        w = make_kv_workload(kind, KV_N, seed)
+        oracle = FinalOracle(w.keys, w.vals, np.zeros(0, np.int32))
+        eng = SLSM(p, device=device)
+        eng.warm()
+        rec = dict(run=len(SCENARIO_RUNS) + 2, scenario=f"kv {kind}",
+                   workload=w.name, negative_keys=int((w.keys < 0).sum()),
+                   **scenario_run(eng, w.keys, w.vals, np.zeros(0, np.int32),
+                                  w.lookups, spanning_windows(w.keys, rng),
+                                  oracle, total, 4 * p.Rn))
+        fp, n_runs, n_keys = measured_fp_rate(eng, absent_keys(oracle, rng))
+        rec.update(fp_rate_measured=fp, fp_runs_probed=n_runs,
+                   fp_keys_probed=n_keys, eps_configured=p.eps)
+        free_engine(eng)
+        rec["run_s"] = time.perf_counter() - t0
+        log(f"scenarios run {rec['run']} kv {kind} [{card}]: "
+            + json.dumps(rec))
+        check_launched(f"kv {kind}", rec, ENGINE_KERNELS)
+        runs.append(rec)
+    return dict(runs=runs, cases=cases, phase_s=time.perf_counter() - t_phase)
+
+
+# --------------------------------------------------------------------------
 # LM phases: decode over the sLSM-tiered KV cache, Phi-4-mini at full width
 # --------------------------------------------------------------------------
 
@@ -4710,7 +5211,22 @@ def dryrun_child(out: str) -> int:
     return 0 if all("error" not in r for r in recs.values()) else 1
 
 
-def dryrun_phase(train: dict, serve: dict, card: str) -> dict:
+def start_dryrun():
+    """Start the `dryrun` phase's child (CPU work on fake tensors, no
+    kernel), so that it runs beside the phases after it; killed at exit
+    if it outlives the smoke. -> (the process, its output file)."""
+    import atexit
+    out = ROOT / "build" / "dryrun" / "smoke.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    with open(out.with_suffix(".log"), "w") as log_file:
+        proc = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                                 "--dryrun-child", str(out)],
+                                stdout=log_file, stderr=subprocess.STDOUT)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc, out
+
+
+def dryrun_phase(train: dict, serve: dict, card: str, started) -> dict:
     """`dryrun`: the dry run's estimate of the `train` phase's step
     (Granite-MoE-1B-A400M, 4 x 256) and of `lm_serve`'s tiered decode
     step (Phi-4-mini, batch 2) against what those phases measured: the
@@ -4718,17 +5234,14 @@ def dryrun_phase(train: dict, serve: dict, card: str) -> dict:
     estimated peak within PEAK_EST_TOL of `max_memory_allocated`;
     `train_mfu` = model FLOPs / step s / the bf16 peak and
     `decode_hbm_share` = bytes_floor / decode s a step / HBM's rate,
-    each finite and at most 1 (above the peak, the count is wrong)."""
+    each finite and at most 1 (above the peak, the count is wrong).
+    `started` is `start_dryrun()`'s child, waited for here."""
     from repro_torch.launch import cost
 
-    out = ROOT / "build" / "dryrun" / "smoke.json"
-    out.parent.mkdir(parents=True, exist_ok=True)
-    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
-                           "--dryrun-child", str(out)],
-                          capture_output=True, text=True, timeout=600)
-    if proc.returncode:
+    proc, out = started
+    if proc.wait(timeout=600):
         raise AssertionError(f"dryrun child exited {proc.returncode}: "
-                             f"{proc.stdout[-2000:]}{proc.stderr[-3000:]}")
+                             f"{out.with_suffix('.log').read_text()[-5000:]}")
     recs = json.loads(out.read_text())
     t, d = recs["train"], recs["lm_serve"]
     est_args = t["memory"]["argument_size_in_bytes"]
@@ -4767,8 +5280,7 @@ def dryrun_phase(train: dict, serve: dict, card: str) -> dict:
     return rec
 
 
-def train_agree_phase(device, seed: int, cfg=None,
-                      examples: bool = True) -> dict:
+def train_agree_phase(device, seed: int, cfg=None) -> dict:
     """`train_agree`: AGREE_TRAIN_ARCH at full width, depth cut to
     AGREE_TRAIN_LAYERS, f32 with TF32 off. One `make_train_step` on the
     card and one on the CPU (the plain PyTorch path) from the same seeded
@@ -4783,8 +5295,7 @@ def train_agree_phase(device, seed: int, cfg=None,
     by at most that whatever their gradients, so this bound only catches
     a missing, non-finite or mis-scheduled update, and the gradients are
     what hold the backward). Then accum_steps 4 against 1 on the card at
-    the same bounds; then each example mirror as a subprocess on the
-    card."""
+    the same bounds."""
     import copy
 
     import torch
@@ -4846,8 +5357,6 @@ def train_agree_phase(device, seed: int, cfg=None,
          torch.backends.cudnn.allow_tf32) = tf32
     del host, card, card4, mu_card, mu_cpu, mu_card4
     torch.cuda.empty_cache()
-    if examples:
-        rec["examples"] = run_examples()
     rec["phase_s"] = time.perf_counter() - t0
     return rec
 
@@ -4860,7 +5369,10 @@ EXAMPLES = (("quickstart_torch.py", "examples/quickstart_torch.py", [],
             ("train_lm_torch.py", "examples/train_lm_torch.py",
              ["--steps", "100", "--ckpt-dir",
               str(ROOT / "build" / "train_lm_torch")],
-             "exact bitwise restore expected: OK"))
+             "exact bitwise restore expected: OK"),
+            ("kv_store_service_torch.py",
+             "examples/kv_store_service_torch.py", [],
+             "verification: 2,000 sampled keys all correct (newest-wins)"))
 # the process-kill twins, each with the success line of its reference
 MIRRORS = (("recovery", "tools/recovery_smoke_torch.py", [],
             "OK: restore is oracle-exact"),
@@ -4919,14 +5431,6 @@ def finish_scripts(entries, logs: Path, started, limit_s: float = 600) -> dict:
         out[name] = dict(s=done[name],
                          last_line=text.strip().splitlines()[-1])
     return out
-
-
-def run_examples() -> dict:
-    """The example mirrors as subprocesses on the card, all three at once
-    (each is small beside the card): exit 0 and its own closing line;
-    seconds each, from the common start to its exit."""
-    logs = ROOT / "build" / "examples"
-    return finish_scripts(EXAMPLES, logs, start_scripts(EXAMPLES, logs))
 
 
 # --------------------------------------------------------------------------
@@ -5390,7 +5894,8 @@ def main() -> int:
     tallies = {path: LaunchTally(counters, contract)
                for path in ("adaptive", "tape", "tape scaled", "durable",
                             "sharded", "replicated leader",
-                            "replicated followers", "replica kill")}
+                            "replicated followers", "replica kill",
+                            "scenarios")}
     with phase("adaptive"):
         eng, oracle, adaptive, pool = adaptive_phase(
             device, args.seed, ADAPTIVE_N, tallies["adaptive"])
@@ -5436,6 +5941,14 @@ def main() -> int:
     with phase("replica kill"):
         killed = replica_kill_phase(device, args.seed, tallies["replica kill"])
     log(f"replica kill [{card}]: " + json.dumps(killed))
+    with phase("scenarios"):
+        scen = scenarios_phase(device, args.seed, tallies["scenarios"], card)
+    log(f"scenarios [{card}]: {len(scen['runs'])} runs exact in "
+        f"{scen['phase_s']:.1f} s")
+    for rec in kernels:
+        rec["cases"].extend(case for name, case in scen["cases"]
+                            if name == rec["name"])
+    torch.cuda.empty_cache()
     by_path = {"main": launches}
     for path, tally in tallies.items():
         by_path[path] = tally.counts
@@ -5510,24 +6023,31 @@ def main() -> int:
         train = train_phase(device, args.seed, counters)
     log(f"train [{card}]: " + json.dumps(train))
     torch.cuda.empty_cache()
+    # the dry run's child traces on the CPU beside the value checks
+    # from here on (train_agree, mesh and the subprocesses)
+    dry_started = start_dryrun()
     with phase("train_agree"):
         train_agree = train_agree_phase(device, args.seed)
     log(f"train_agree [{card}]: " + json.dumps(train_agree))
     torch.cuda.empty_cache()
 
-    mirror_logs = ROOT / "build" / "mirrors"
-    mirrors_started = start_scripts(MIRRORS, mirror_logs)
+    # the process-kill twins and the example mirrors beside the mesh phase
+    script_logs = ROOT / "build" / "scripts"
+    scripts_started = start_scripts(MIRRORS + EXAMPLES, script_logs)
     try:
         with phase("mesh"):
             mesh = mesh_phase(device, args.seed, counters)
     finally:
         with phase("mirrors"):
-            mirrors = finish_scripts(MIRRORS, mirror_logs, mirrors_started)
+            scripts = finish_scripts(MIRRORS + EXAMPLES, script_logs,
+                                     scripts_started)
     for name in ("moe_mesh", "lsm_mesh", "train_mesh", "compress"):
         log(f"mesh {name} [{card}]: " + json.dumps(mesh[name]))
-    log(f"mirrors [{card}]: " + json.dumps(mirrors))
+    for what, entries in (("mirrors", MIRRORS), ("examples", EXAMPLES)):
+        log(f"{what} [{card}]: " + json.dumps(
+            {name: scripts[name] for name, *_ in entries}))
     with phase("dryrun"):
-        dry = dryrun_phase(train, serve, card)
+        dry = dryrun_phase(train, serve, card, dry_started)
     log(f"dryrun [{card}]: " + json.dumps(dry))
 
     for rec in kernels:

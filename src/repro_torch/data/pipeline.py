@@ -6,9 +6,9 @@ only its slice, with no cross-host data motion. Its batches are numpy,
 bit for bit the reference's; a train step moves them to the model's
 device.
 
-The reference module also re-exports `KVWorkload` and
-`make_kv_workload`, the engine benchmark's workloads, from
-`repro.bench.workloads`. They come with the port of `bench/`, not here.
+`KVWorkload` and `make_kv_workload`, the per-figure KV workload
+generator, live in `repro_torch.bench.workloads`; this module re-exports
+them, as the reference's does.
 """
 from __future__ import annotations
 
@@ -43,3 +43,9 @@ class TokenStream:
                             dtype=np.int32)
         self.step += 1
         return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+# The KV workload generators live in `repro_torch.bench.workloads` (the
+# benchmark's package owns workload definitions); re-exported here as
+# the reference re-exports its own.
+from repro_torch.bench.workloads import KVWorkload, make_kv_workload  # noqa: E402,F401

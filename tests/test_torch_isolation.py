@@ -1,7 +1,8 @@
 """The port stands alone: importing every `repro_torch` module (the
-training path's `train` and `data`, `distributed` and `launch` among
-them; none sets XLA_FLAGS, as the reference's dry run does) and the process-kill twins (`tools/*_torch.py`; the failover
-demo twin runs at import, so its imports are read from its source)
+training path's `train` and `data`, `distributed`, `launch` and
+`bench` among them; none sets XLA_FLAGS, as the reference's dry run does) and the process-kill twins (`tools/*_torch.py`; the failover
+demo twin runs at import, so its imports are read from its source, as
+are the KV service twin's)
 pulls in neither JAX nor the reference package (nor `ml_dtypes`: the snapshot
 codec and checkpoints carry bfloat16 without it), and the engine refuses
 to start without a CUDA card unless asked for the CPU, adaptive tuning
@@ -31,7 +32,8 @@ assert {"repro_torch.train.train_step", "repro_torch.data.pipeline",
         "repro_torch.distributed.pipeline", "repro_torch.launch.mesh",
         "repro_torch.launch.cost", "repro_torch.launch.dryrun",
         "repro_torch.launch.roofline", "repro_torch.launch.report",
-        "repro_torch.launch.diagnose"} <= set(mods), mods
+        "repro_torch.launch.diagnose", "repro_torch.bench.workloads",
+        "repro_torch.bench.scenarios"} <= set(mods), mods
 import os
 assert "XLA_FLAGS" not in os.environ, os.environ["XLA_FLAGS"]
 import ast, importlib.util
@@ -40,7 +42,8 @@ for tool in ("recovery_smoke_torch", "replication_smoke_torch"):
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
 for script in ("tools/recovery_smoke_torch.py",
                "tools/replication_smoke_torch.py",
-               "examples/failover_demo_torch.py"):
+               "examples/failover_demo_torch.py",
+               "examples/kv_store_service_torch.py"):
     for node in ast.walk(ast.parse(open(script).read())):
         names = ([a.name for a in node.names] if isinstance(node, ast.Import)
                  else [node.module or ""] if isinstance(node, ast.ImportFrom)

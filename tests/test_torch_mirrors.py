@@ -3,9 +3,9 @@ CPU (`--device cpu`) at its defaults: `tools/recovery_smoke_torch.py`
 (a SIGKILLed durable server, then a crash-exact restore),
 `tools/replication_smoke_torch.py` (a SIGKILLed leader, then an
 answer-exact promotion; `--partition`: a SIGSTOPped leader, automatic
-promotion, fencing and a bitwise rejoin) and
-`examples/failover_demo_torch.py`. Each must exit 0 and print the
-success line of the reference's twin.
+promotion, fencing and a bitwise rejoin), `examples/failover_demo_torch.py`
+and `examples/kv_store_service_torch.py` (at 20,000 requests). Each must
+exit 0 and print the success line of the reference's twin.
 """
 import os
 import subprocess
@@ -28,6 +28,10 @@ TWINS = {
     "failover_demo": (["examples/failover_demo_torch.py"],
                       "OK: automatic failover -> fence -> rejoin, all "
                       "answer-exact"),
+    "kv_store_service": (["examples/kv_store_service_torch.py",
+                          "--requests", "20000"],
+                         "verification: 2,000 sampled keys all correct "
+                         "(newest-wins)"),
 }
 
 
